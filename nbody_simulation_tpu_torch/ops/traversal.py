@@ -1,0 +1,447 @@
+"""Barnes-Hut traversal: a level-synchronous planner plus one force sweep.
+
+The port of ``nbody_simulation_tpu/ops/traversal.py`` for the monopole
+path. The reference walks the tree recursively per particle (reference
+src/main.rs:348-386); here, as in the JAX package, the walk is split:
+
+1. **Planning (plain torch).** Each planning row (``plan_leaves`` adjacent
+   leaves) walks the tree one level at a time with a fixed-capacity
+   frontier. A node is accepted when it is disjoint from the row's AABB and
+   passes the θ test at the minimum distance from that AABB to the node's
+   COM — conservative against the per-particle rule. Every level's
+   candidates become source columns (COM, mass if accepted else 0); nodes
+   that reach the leaf level land in a leaf list whose particles are
+   gathered in. Overflow of a capacity accepts the node's COM instead of
+   dropping it. The JAX package's ``lax.scan`` over width-padded level
+   buckets (a TPU gather tuning) is one Python loop over levels here; the
+   child-interleaved candidate order, which fixes the source-column order,
+   is the same.
+2. **Force sweep (CUDA).** For group g, its S targets against its C
+   planned sources: ``grouped_force``, which launches the hand-written
+   kernel ``csrc/grouped_sweep.cu`` on CUDA tensors and runs the plain
+   version ``grouped_force_ref`` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from nbody_simulation_tpu_torch.config import RCP_MODES
+from nbody_simulation_tpu_torch.ops.force import pair_accel
+from nbody_simulation_tpu_torch.ops.tree import BIG, FlatTree, build_tree
+
+_K4_MSG = ("multipole=2 needs the quadrupole sweep (kernel K4, "
+           "_sweep_kernel with _quad_tile), which is not ported yet: "
+           "ROADMAP.md, 'TPU kernels, ported and to port', K4")
+
+
+def _group_node_d2(gmin, gmax, nmin, nmax, ncom):
+    """Min squared distance from the group AABB to the node COM; plus the
+    strict-disjoint flag and node size²."""
+    disjoint = ((gmax[..., 0] <= nmin[..., 0]) | (gmin[..., 0] >= nmax[..., 0])
+                | (gmax[..., 1] <= nmin[..., 1]) | (gmin[..., 1] >= nmax[..., 1]))
+    size = nmax - nmin
+    s2 = torch.maximum(size[..., 0], size[..., 1]) ** 2
+    dx = torch.clamp_min(torch.maximum(gmin[..., 0] - ncom[..., 0],
+                                       ncom[..., 0] - gmax[..., 0]), 0.0)
+    dy = torch.clamp_min(torch.maximum(gmin[..., 1] - ncom[..., 1],
+                                       ncom[..., 1] - gmax[..., 1]), 0.0)
+    return disjoint, s2, dx * dx + dy * dy
+
+
+def _compact(flags: torch.Tensor, values: torch.Tensor, cap: int):
+    """Prefix-compact ``values`` where ``flags`` into per-row lists of width
+    ``cap``. Returns (lists (G,cap) int32, valid (G,cap) bool, overflow
+    (G,K) bool)."""
+    g = flags.shape[0]
+    dev = flags.device
+    slot = torch.cumsum(flags.to(torch.int32), dim=1) - 1
+    overflow = flags & (slot >= cap)
+    store = flags & (slot < cap)
+    rows = torch.arange(g, dtype=torch.int64, device=dev)[:, None] * cap
+    # Entries that are not stored go to one extra slot, cut off below.
+    flat_idx = torch.where(store, rows + slot, g * cap).ravel()
+    lists = torch.zeros(g * cap + 1, dtype=torch.int32, device=dev)
+    lists.scatter_(0, flat_idx, values.to(torch.int32).ravel())
+    valid = torch.zeros(g * cap + 1, dtype=torch.bool, device=dev)
+    valid.scatter_(0, flat_idx, store.ravel())
+    return (lists[:g * cap].reshape(g, cap), valid[:g * cap].reshape(g, cap),
+            overflow)
+
+
+# Candidate widths up to this run the dense rank compaction; wider ones
+# (physics-quality caps) sort, as in the JAX package.
+_RANK_COMPACT_MAX_K = 128
+
+
+def _compact_ranked(flags: torch.Tensor, values: torch.Tensor,
+                    key: torch.Tensor, cap: int):
+    """Closest-first compaction: entry j's slot is its rank among flagged
+    entries ordered by (key, index). Same result as a stable sort by key
+    followed by ``_compact``. Returns (lists, valid, overflow) as
+    ``_compact``."""
+    k = flags.shape[1]
+    dev = flags.device
+    kf = torch.where(flags, key, torch.full((), float("inf"),
+                                            dtype=key.dtype, device=dev))
+    idx = torch.arange(k, dtype=torch.int32, device=dev)
+    first = kf[:, :, None] < kf[:, None, :]
+    tie = (kf[:, :, None] == kf[:, None, :]) & (idx[:, None] < idx[None, :])
+    less = (first | tie) & flags[:, :, None]
+    rank = less.sum(dim=1, dtype=torch.int32)
+    overflow = flags & (rank >= cap)
+    store = flags & (rank < cap)
+    slots = torch.arange(cap, dtype=torch.int32, device=dev)
+    onehot = (rank[:, :, None] == slots) & store[:, :, None]  # (G, K, cap)
+    lists = torch.where(onehot, values.to(torch.int32)[:, :, None],
+                        torch.zeros((), dtype=torch.int32, device=dev)
+                        ).sum(dim=1, dtype=torch.int32)
+    valid = onehot.any(dim=1)
+    return lists, valid, overflow
+
+
+def bh_plan_sources(tree: FlatTree, theta: float, frontier_cap: int,
+                    leaf_cap: int, arity: int = 2, plan_leaves: int = 1,
+                    multipole: int = 1):
+    """Planning pass → per-group source columns (src_x, src_y, src_m), each
+    (G, C). Zero-mass entries contribute zero force. The walk starts at level
+    log2(F) with all its nodes in the frontier; ``arity=4`` walks two binary
+    levels per iteration."""
+    if arity not in (2, 4):
+        raise ValueError(f"arity must be 2 or 4, got {arity}")
+    depth = tree.depth
+    n_leaves = tree.leaf_pos.shape[0]
+    # One planning row covers pl_ adjacent leaves; its AABB is their common
+    # ancestor at level depth - log2(pl_).
+    pl_ = plan_leaves
+    while pl_ > 1 and (n_leaves % pl_ or (1 << depth) < pl_):
+        pl_ //= 2
+    own_level = tree.levels[depth - (pl_.bit_length() - 1)]
+    return plan_rows(tree, own_level, theta, frontier_cap, leaf_cap, arity,
+                     multipole=multipole)
+
+
+def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
+              leaf_cap: int, arity: int = 2, multipole: int = 1):
+    """The planner over explicit own-AABB rows (one per planning row).
+
+    Returns ``(src_x, src_y, src_m)`` of (G, C). Only the unbounded walk is
+    ported; the bounded walk, seeded frontiers and ``multipole=2`` serve the
+    distributed and quadrupole paths, which are not.
+    """
+    if multipole != 1:
+        raise NotImplementedError(_K4_MSG)
+    depth = tree.depth
+    F = frontier_cap
+    dev = own.aabb_min.device
+    g_rows = own.aabb_min.shape[0]
+    gmin = own.aabb_min[:, None, :]     # (G,1,2) group AABB
+    gmax = own.aabb_max[:, None, :]
+    theta2 = float(np.float32(theta * theta))
+    k0 = min(max(F.bit_length() - 1, 0), depth - 1) if depth > 0 else 0
+
+    def level_body(packed_child, frontier, valid, fan, cap):
+        """Expand one level: test fan·F candidate children, emit their COM
+        source columns, compact the opened ones (closest first) into a
+        width-``cap`` list."""
+        g_, fw = frontier.shape
+        w, ncols = packed_child.shape
+        # The fan children of frontier node k are rows fan·k .. fan·k+fan−1:
+        # one gather by parent fetches them, child-interleaved per parent.
+        rec = (packed_child.reshape(w // fan, fan * ncols)[frontier]
+               .reshape(g_, fw * fan, ncols))
+        cand = (frontier[:, :, None] * fan
+                + torch.arange(fan, dtype=torch.int32, device=dev)
+                ).reshape(g_, fw * fan)
+        cvalid = valid[:, :, None].expand(g_, fw, fan).reshape(g_, fw * fan)
+        nmin, nmax, ncom = rec[..., 0:2], rec[..., 2:4], rec[..., 4:6]
+        nonempty = rec[..., 7] > 0
+        disjoint, s2, d2 = _group_node_d2(gmin, gmax, nmin, nmax, ncom)
+        accept = cvalid & disjoint & (s2 < d2 * theta2)
+        opened = cvalid & ~accept & nonempty
+        # Closest-first: overflow falls back to COM on the farthest nodes.
+        if cand.shape[1] <= _RANK_COMPACT_MAX_K:
+            new_list, new_valid, overflow = _compact_ranked(
+                opened, cand, d2, cap)
+        else:
+            if cap < cand.shape[1]:
+                perm = torch.argsort(
+                    torch.where(opened, d2, torch.full((), BIG, device=dev)),
+                    dim=1, stable=True)
+                cand = torch.take_along_dim(cand, perm, dim=1)
+                opened = torch.take_along_dim(opened, perm, dim=1)
+                accept = torch.take_along_dim(accept, perm, dim=1)
+                rec = torch.take_along_dim(rec, perm[..., None], dim=1)
+            new_list, new_valid, overflow = _compact(opened, cand, cap)
+        use_com = accept | overflow  # overflow → COM, never dropped
+        cols = (rec[..., 4], rec[..., 5],
+                torch.where(use_com, rec[..., 6],
+                            torch.zeros((), device=dev)))
+        return new_list, new_valid, cols
+
+    src_x, src_y, src_m = [], [], []
+    width = 1 << k0
+    frontier = torch.zeros((g_rows, max(F, width)), dtype=torch.int32,
+                           device=dev)
+    frontier[:, :width] = torch.arange(width, dtype=torch.int32, device=dev)
+    valid = (torch.arange(frontier.shape[1], device=dev) < width
+             ).expand(g_rows, -1)
+    leaf_ids = torch.zeros((g_rows, 1), dtype=torch.int32, device=dev)
+    leaf_valid = torch.ones((g_rows, 1), dtype=torch.bool, device=dev)
+
+    lvl = k0
+    while lvl < depth:
+        step = 2 if (arity == 4 and lvl + 2 <= depth) else 1
+        last = lvl + step >= depth
+        out_list, out_valid, cols = level_body(
+            tree.levels[lvl + step].packed, frontier, valid, 1 << step,
+            leaf_cap if last else F)
+        if last:
+            leaf_ids, leaf_valid = out_list, out_valid
+        else:
+            frontier, valid = out_list, out_valid
+        src_x.append(cols[0])
+        src_y.append(cols[1])
+        src_m.append(cols[2])
+        lvl += step
+
+    # Leaf tiles: gather (G, L, S) particle data; invalid slots massless.
+    leaf_ids = leaf_ids.to(torch.int64)
+    lp = tree.leaf_pos[leaf_ids]                        # (G, L, S, 2)
+    lm = tree.leaf_mass[leaf_ids] * leaf_valid[..., None]
+    n_src = leaf_ids.shape[1] * tree.leaf_pos.shape[1]
+    src_x.append(lp[..., 0].reshape(g_rows, n_src))
+    src_y.append(lp[..., 1].reshape(g_rows, n_src))
+    src_m.append(lm.reshape(g_rows, n_src))
+    return (torch.cat(src_x, dim=1), torch.cat(src_y, dim=1),
+            torch.cat(src_m, dim=1))
+
+
+# -- the force sweep ----------------------------------------------------------
+
+def _check_rcp(rcp: str) -> None:
+    if rcp not in RCP_MODES:
+        raise ValueError(f"rcp must be one of {RCP_MODES}, got {rcp!r}")
+
+
+_REF_CHUNK_ELEMS = 1 << 25
+
+
+def grouped_force_ref(tgt: torch.Tensor, src_x: torch.Tensor,
+                      src_y: torch.Tensor, src_m: torch.Tensor,
+                      softening2: float = 1e-3, rcp: str = "exact",
+                      col_limit: torch.Tensor | None = None) -> torch.Tensor:
+    """The sweep's plain version: targets (G, S, 2) against per-group
+    sources (G, C) → accel (G, S, 2), summing columns ``c < col_limit[g]``
+    (all C when None).
+
+    Always computes ``exact`` — the law of ``ops/force.pair_accel`` — as
+    the JAX package's interpret path does; ``rcp`` is validated only.
+    Groups are taken in chunks so the (g, S, C) temporaries stay near
+    ``_REF_CHUNK_ELEMS`` elements (the whole galaxy sweep would be 1.3 GB
+    each).
+    """
+    _check_rcp(rcp)
+    g, s, _ = tgt.shape
+    c = src_x.shape[1]
+    out = torch.empty_like(tgt)
+    gc = max(1, _REF_CHUNK_ELEMS // max(1, s * c))
+    cols = torch.arange(c, device=tgt.device)
+    for g0 in range(0, g, gc):
+        sl = slice(g0, g0 + gc)
+        dx = src_x[sl, None, :] - tgt[sl, :, 0:1]      # (gc, S, C)
+        dy = src_y[sl, None, :] - tgt[sl, :, 1:2]
+        ax, ay = pair_accel(dx, dy, src_m[sl, None, :], softening2)
+        if col_limit is not None:
+            keep = (cols[None, :] < col_limit[sl, None])[:, None, :]
+            zero = torch.zeros((), dtype=ax.dtype, device=ax.device)
+            ax = torch.where(keep, ax, zero)
+            ay = torch.where(keep, ay, zero)
+        out[sl, :, 0] = ax.sum(dim=-1)
+        out[sl, :, 1] = ay.sum(dim=-1)
+    return out
+
+
+_RCP_CODE = {m: i for i, m in enumerate(RCP_MODES)}
+_sweep_lib = None
+
+
+def _load_sweep_lib():
+    global _sweep_lib
+    if _sweep_lib is None:
+        from nbody_simulation_tpu_torch.cuda_build import load_cuda_library
+        lib = load_cuda_library("grouped_sweep")
+        lib.grouped_sweep_launch.restype = ctypes.c_int
+        lib.grouped_sweep_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        _sweep_lib = lib
+    return _sweep_lib
+
+
+def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
+                  src_m: torch.Tensor, softening2: float = 1e-3,
+                  rcp: str = "approx",
+                  col_limit: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the CUDA sweep kernel (``csrc/grouped_sweep.cu``).
+
+    CUDA tensors only: tgt f32 (G, S, 2), src_x/src_y/src_m f32 (G, C),
+    col_limit int32 (G,) or None, all contiguous on one device. Anything else
+    raises; there is no fallback. ``grouped_sweep.launches`` counts the
+    launches.
+    """
+    _check_rcp(rcp)
+    if tgt.device.type != "cuda":
+        raise ValueError(f"grouped_sweep needs CUDA tensors, got {tgt.device}")
+    if tgt.ndim != 3 or tgt.shape[2] != 2:
+        raise ValueError(f"tgt must be (G, S, 2), got {tuple(tgt.shape)}")
+    g, s, _ = tgt.shape
+    srcs = (src_x, src_y, src_m)
+    c = src_x.shape[1] if src_x.ndim == 2 else -1
+    tensors = (tgt,) + srcs
+    for t in srcs:
+        if t.shape != (g, c):
+            raise ValueError(f"sources must all be (G, C) = ({g}, C), got "
+                             f"{[tuple(a.shape) for a in srcs]}")
+    if col_limit is not None:
+        if col_limit.shape != (g,) or col_limit.dtype != torch.int32:
+            raise ValueError("col_limit must be int32 (G,), got "
+                             f"{col_limit.dtype} {tuple(col_limit.shape)}")
+        tensors = tensors + (col_limit,)
+    for t in tensors:
+        if t.device != tgt.device:
+            raise ValueError(f"all tensors must be on {tgt.device}, "
+                             f"one is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("grouped_sweep needs contiguous tensors")
+    for t in (tgt,) + srcs:
+        if t.dtype != torch.float32:
+            raise ValueError(f"grouped_sweep needs float32, got {t.dtype}")
+    if max(g, s, c) >= 2**31 or g * s * 2 >= 2**31 or g * c >= 2**31:
+        raise ValueError(f"shape too large for int32 indexing: {g, s, c}")
+    lib = _load_sweep_lib()
+    out = torch.empty_like(tgt)
+    err = lib.grouped_sweep_launch(
+        tgt.data_ptr(), src_x.data_ptr(), src_y.data_ptr(), src_m.data_ptr(),
+        None if col_limit is None else col_limit.data_ptr(), out.data_ptr(),
+        g, s, c, float(softening2), _RCP_CODE[rcp], tgt.device.index or 0,
+        torch.cuda.current_stream(tgt.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_sweep kernel launch failed: CUDA error "
+                           f"{err} at G={g}, S={s}, C={c}, rcp={rcp}")
+    grouped_sweep.launches += 1
+    return out
+
+
+grouped_sweep.launches = 0
+
+
+def grouped_force(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
+                  src_m: torch.Tensor, softening2: float = 1e-3,
+                  rcp: str = "approx",
+                  col_limit: torch.Tensor | None = None) -> torch.Tensor:
+    """Targets (G, S, 2) vs per-group sources (G, C) → accel (G, S, 2).
+
+    CUDA tensors launch the kernel (``grouped_sweep``); CPU tensors run the
+    plain version (``grouped_force_ref``, always ``exact``).
+    """
+    _check_rcp(rcp)
+    if tgt.device.type == "cuda":
+        return grouped_sweep(tgt, src_x, src_y, src_m, softening2, rcp,
+                             col_limit)
+    if tgt.device.type == "cpu":
+        return grouped_force_ref(tgt, src_x, src_y, src_m, softening2, rcp,
+                                 col_limit)
+    raise ValueError(f"no sweep for device {tgt.device}")
+
+
+def last_nonzero_columns(src_m: torch.Tensor) -> torch.Tensor:
+    """int32 (G,): one past each group's last nonzero-mass column (0 when
+    the group has none)."""
+    g, c = src_m.shape
+    if c == 0:
+        return torch.zeros(g, dtype=torch.int32, device=src_m.device)
+    cols1 = torch.arange(1, c + 1, dtype=torch.int32, device=src_m.device)
+    return torch.where(src_m != 0, cols1,
+                       torch.zeros((), dtype=torch.int32,
+                                   device=src_m.device)).amax(dim=1)
+
+
+def bh_accel_sorted(tree: FlatTree, theta: float = 50.0,
+                    softening2: float = 1e-3, frontier_cap: int = 32,
+                    leaf_cap: int = 16, arity: int = 2, plan_leaves: int = 1,
+                    multipole: int = 1, rcp: str | None = None) -> torch.Tensor:
+    """Accelerations for all (sorted, padded) particles of the tree, as
+    f32[n_leaves*leaf_size, 2] in sorted order. ``rcp=None`` resolves from θ
+    like ``SimConfig.resolved_rcp``.
+
+    Each group is swept only up to its last nonzero-mass column, which is
+    what the JAX package's occupancy-bucketed sweep buys with static-width
+    calls: a GPU block loops to its own group's bound. The columns past it
+    have zero mass and add exactly ±0, so the result is bitwise the full
+    sweep's (tests/test_torch_traversal.py, chip_smoke.py)."""
+    if rcp is None:
+        rcp = "approx" if theta >= 2.0 else "newton"
+    n_leaves, S, _ = tree.leaf_pos.shape
+    pl_ = max(1, min(plan_leaves, n_leaves))
+    while n_leaves % pl_:
+        pl_ //= 2
+    src_x, src_y, src_m = bh_plan_sources(tree, theta, frontier_cap,
+                                          leaf_cap, arity=arity,
+                                          plan_leaves=pl_,
+                                          multipole=multipole)
+    tgt = tree.leaf_pos.reshape(n_leaves // pl_, pl_ * S, 2)
+    acc = grouped_force(tgt, src_x, src_y, src_m, softening2, rcp,
+                        col_limit=last_nonzero_columns(src_m))
+    return acc.reshape(n_leaves * S, 2)
+
+
+def bh_accel(pos: torch.Tensor, mass: torch.Tensor, *, theta: float = 50.0,
+             softening2: float = 1e-3, leaf_size: int = 64,
+             world_size: float = 100_000.0, unweighted_leaf_com: bool = True,
+             frontier_cap: int | None = None, leaf_cap: int | None = None,
+             arity: int = 2, plan_leaves: int = 1,
+             morton_bits: int | None = None, multipole: int | None = None,
+             rcp: str | None = None) -> torch.Tensor:
+    """Full Barnes-Hut acceleration: sort + build + plan + sweep + unsort.
+    Returns accelerations in the original particle order. ``None`` knobs
+    resolve from θ like ``SimConfig``."""
+    n = pos.shape[0]
+    if morton_bits is None:
+        morton_bits = 15 if theta >= 2.0 else 24
+    if multipole is None:
+        multipole = 1 if theta >= 2.0 else 2
+    pl_ = max(1, plan_leaves)
+    if frontier_cap is None:
+        frontier_cap = 16 if theta >= 2.0 else 256
+    if leaf_cap is None:
+        leaf_cap = max(8, 4 * pl_) if theta >= 2.0 else max(256, 32 * pl_)
+    tree, order = build_tree(pos, mass, leaf_size=leaf_size,
+                             world_size=world_size,
+                             unweighted_leaf_com=unweighted_leaf_com,
+                             morton_bits=morton_bits)
+    acc_sorted = bh_accel_sorted(tree, theta=theta, softening2=softening2,
+                                 frontier_cap=frontier_cap, leaf_cap=leaf_cap,
+                                 arity=arity, plan_leaves=plan_leaves,
+                                 multipole=multipole, rcp=rcp)
+    out = torch.zeros((n, 2), dtype=torch.float32, device=pos.device)
+    out[order] = acc_sorted[:n]
+    return out
+
+
+def bh_accel_fn(config):
+    """World adapter: (pos, mass) -> accel from a SimConfig."""
+    fcap, lcap = config.resolved_caps()
+    return functools.partial(
+        bh_accel, theta=config.theta, softening2=config.softening2,
+        leaf_size=config.leaf_size, world_size=config.world_size,
+        unweighted_leaf_com=config.unweighted_leaf_com,
+        frontier_cap=fcap, leaf_cap=lcap,
+        arity=config.tree_arity, plan_leaves=config.plan_leaves,
+        morton_bits=config.resolved_morton_bits(),
+        multipole=config.resolved_multipole(),
+        rcp=config.resolved_rcp(bh=True))
