@@ -4,47 +4,165 @@
     python3 chip_smoke.py
 
 Run from the root of the repository, on a machine with one CUDA card. It
-builds the port's CUDA kernel from ``nbody_simulation_tpu_torch/csrc/``,
-holds it against its plain PyTorch version at the main path's shapes,
-checks Barnes-Hut at θ=0 against an f64 direct sum, and drives the main
-path (``python -m nbody_simulation_tpu_torch.run`` with its defaults: the
-reference galaxy, Barnes-Hut θ=50, sparse raster, PNG output) for 64 steps.
-Every check that fails raises, and the exit code is then nonzero. Progress
-lines carry the card's name and power limit. The second-to-last line holds
-the kernel table as JSON, the line before it the card, and the last line is
-``{"ok": true, "device": {...}}``.
+builds the port's CUDA kernels from ``nbody_simulation_tpu_torch/csrc/``
+(one nvcc per source, all at once) and holds each to its plain PyTorch
+version at the main paths' shapes:
+
+- the Barnes-Hut sweep (K3/K5) at the galaxy's planned shape, then θ=0
+  Barnes-Hut against an f64 direct sum;
+- the symmetric (K2) and ordered (K1) all-pairs kernels in all five rcp
+  modes on the galaxy and on 4,096 sampled targets at N=1,048,576, K2's
+  determinism, K2 against K1, and the NaN pattern of both in ``exact``
+  and in the +clamp modes;
+- K1, K2 and the potential kernel (K6) at small N, where K2's tournament
+  has one tile, an odd count of tiles or a ragged last tile;
+- K6 on the galaxy.
+
+Then it drives the main paths through the CLI: the Barnes-Hut galaxy
+(``python -m nbody_simulation_tpu_torch.run`` defaults) for 64 steps, and
+the all-pairs galaxy with energy telemetry (``--force-path pallas
+--energy-every 8``) for 32 steps, plus 4 steps of the ordered all-pairs
+World (``sym_allpairs=False``); each run zeroes the kernels' launch counts
+just before and reads them just after. Every check that fails raises, and
+the exit code is then nonzero. Progress lines carry the card's name and
+power limit. The last three lines are the kernel table as JSON, the card,
+and ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX is imported: the card's machine has none.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SOFTENING2 = 1e-3
 # |kernel - plain| per target and component, relative to Σ_j |c_ij|. In
 # `exact` the per-pair terms are the same IEEE operations and only the
-# summation order differs (the kernel adds runs of 32 columns, torch
-# reduces pairwise): ~1e-6 of Σ|c| at the galaxy. The other modes multiply
-# by the hardware reciprocal (1 ulp) instead of dividing, a few ulps per
-# pair, so they add a few 1e-7 of Σ|c| at most. The plain version is always
-# `exact`, so every mode is held to it with the same bound, which a wrong
-# mask or reciprocal step exceeds by orders of magnitude.
+# summation order differs (the kernels add runs of 32 terms in f32 and the
+# runs in f64, torch reduces pairwise in f32): ~1e-6 of Σ|c| at the galaxy.
+# The other modes multiply by the hardware reciprocal (1 ulp) instead of
+# dividing, a few ulps per pair, so they add a few 1e-7 of Σ|c| at most.
+# The symmetric law divides first and multiplies after (≤2 ulp from the
+# ordered law per pair). The plain versions are always `exact`, so every
+# mode is held to them with the same bound, which a wrong mask or
+# reciprocal step exceeds by orders of magnitude. For the potential every
+# term has one sign, so Σ|c| = |φ| and the bound is relative per target.
 SUM_ORDER_RTOL = 1e-5
-STEPS = 64
+STEPS = 64           # Barnes-Hut main path
+PALLAS_STEPS = 32    # all-pairs main path
+ENERGY_EVERY = 8
+ORDERED_STEPS = 4    # the ordered all-pairs World
+N_BIG = 1_048_576
+N_SAMPLED = 4096
+SMALL_N = (200, 512, 768, 1000, 1280)   # K2 tiles of 256: nt 1, 2, 3, 4, 5
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_PER_SM_CLK = 128         # FP32 results per SM and clock (67 TFLOP/s FMA)
+MUFU_PER_SM_CLK = 16          # reciprocal / rsqrt results per SM and clock
+
+
+def law_ops(form: str, rcp: str) -> int:
+    """FP32 operations per pair that the pair law itself needs, besides one
+    MUFU reciprocal or rsqrt, in a form of ``csrc/pair_law.cuh``: "mono",
+    an ordered pair of K1 or K3; "sym", an unordered pair of K2, applied
+    to both sides; "pot", a term of K6. The sums into the accumulators
+    count; loads, loop control and K2's shuffles do not, being the
+    implementation's. ``exact`` has no count: an IEEE division is no fixed
+    number of operations."""
+    base, _, guard = rcp.partition("+")
+    ops = 8  # d: 2 sub; |d|_1: 1 add; d2: 2 mul, add, max; den or m*r: 1 mul
+    if form == "pot":
+        return ops + 3 + 1  # the mask (2 compares, select) and the sum
+    ops += {"newton": 3, "approx": 0}[base]  # the Newton step r*(2 - den*r)
+    ops += 1 if guard == "clamp" else 3      # max(s, clamp), or the mask
+    return ops + (5 if form == "mono" else 10)  # m*r, d*w, sums; per side
+
+
+def card_query(fields: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return card_query("name,power.limit")
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("cuobjdump not found")
+
+
+def sass_per_pair(lib: Path, function: str) -> tuple[float, float]:
+    """(instructions, MUFU ops) per pair in the hot loop of ``function`` in
+    the built library, from ``cuobjdump -sass``: the law's operations and
+    the implementation's overhead together. Every form of the pair law
+    computes ‖d‖₁ = |dx| + |dy| once, as one FADD with two absolute-value
+    operands, so those count the loop's pairs; the hot loop is the
+    innermost loop (a backward branch with no other loop inside) holding
+    the most pairs."""
+    text = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    body, name = [], None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if name is not None and function in name:
+                break
+            name, body = m.group(1), []
+            continue
+        body.append(line)
+    if name is None or function not in name:
+        raise RuntimeError(f"no SASS function matching {function} in {lib}")
+    instrs, where, branches = [], {}, []
+    for line in body:
+        lab = re.match(r"^\s*(\.L_x_\d+):", line)
+        if lab:
+            where[lab.group(1)] = len(instrs)
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", line)
+        if ins:
+            where[f"0x{int(ins.group(1), 16):x}"] = len(instrs)
+            tgt = re.search(r"BRA\S*\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
+                            ins.group(2))
+            if tgt:
+                label = tgt.group(1) or f"0x{int(tgt.group(2), 16):x}"
+                branches.append((len(instrs), label))
+            instrs.append(ins.group(2))
+    loops = [(where[t], at) for at, t in branches
+             if t in where and where[t] <= at]
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b)
+                        for c, d in loops)]
+    pair_op = re.compile(r"FADD\S*\s+R\d+,\s*\|R\d+\|,\s*\|R\d+\|")
+    best = None
+    for a, b in inner:
+        loop = instrs[a:b + 1]
+        pairs = sum(bool(pair_op.search(s)) for s in loop)
+        if pairs and (best is None or pairs > best[2]):
+            best = (len(loop), sum("MUFU." in s for s in loop), pairs)
+    if best is None:
+        raise RuntimeError(f"no pair loop found in the SASS of {function}")
+    return best[0] / best[2], best[1] / best[2]
 
 
 def main() -> int:
@@ -62,14 +180,18 @@ def main() -> int:
                          f"({e})")
     from nbody_simulation_tpu_torch.config import RCP_MODES, SimConfig
     from nbody_simulation_tpu_torch.cuda_build import library_path
+    from nbody_simulation_tpu_torch.models import World
     from nbody_simulation_tpu_torch.models.scenarios import (galaxy,
                                                              uniform_disc)
+    from nbody_simulation_tpu_torch.ops import allpairs as ap
+    from nbody_simulation_tpu_torch.ops import energy as en
     from nbody_simulation_tpu_torch.ops import traversal
     from nbody_simulation_tpu_torch.ops.force import direct_accel, pair_accel
     from nbody_simulation_tpu_torch.ops.morton import morton_sort_state
     from nbody_simulation_tpu_torch.ops.tree import summarize_sorted
     from nbody_simulation_tpu_torch.utils.telemetry import Counting
 
+    t_start = time.perf_counter()
     card = card_line()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -78,7 +200,7 @@ def main() -> int:
     def log(msg: str) -> None:
         print(f"{msg}  [{card}]", flush=True)
 
-    # -- 1. environment -------------------------------------------------------
+    # -- 1. environment and build ---------------------------------------------
     log(f"card: {card}; torch.cuda: {torch.cuda.get_device_name(0)}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     banned = [m for m in sys.modules
@@ -86,10 +208,49 @@ def main() -> int:
               or m == "nbody_simulation_tpu"]
     if banned:
         raise RuntimeError(f"JAX or the JAX package was imported: {banned}")
+    loaders = {"grouped_sweep": traversal._load_sweep_lib,
+               "allpairs": ap._load_lib}
+
+    def build(name):
+        t = time.perf_counter()
+        loaders[name]()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    traversal._load_sweep_lib()
-    log(f"kernel grouped_sweep built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s ({library_path('grouped_sweep')})")
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        build_s = dict(zip(loaders, pool.map(build, loaders)))
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s, in "
+        "parallel: " + ", ".join(f"{k} {v:.2f} s ({library_path(k).name})"
+                                 for k, v in build_s.items()))
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk_hz = float(card_query("clocks.max.sm").split()[0]) * 1e6
+    log(f"{sms} SMs at a maximum SM clock of {clk_hz / 1e6:.0f} MHz: FP32 "
+        f"{sms * FP32_PER_SM_CLK * clk_hz:.4e} op/s, MUFU "
+        f"{sms * MUFU_PER_SM_CLK * clk_hz:.4e} op/s")
+
+    def bound(form: str, rcp: str, pairs: float, nbytes: float,
+              lib: str, function: str):
+        """(bound_ms, bound_by, note): the larger of the bytes over the
+        memory rate and the law's pair work (``law_ops`` and one MUFU op
+        per pair) over the FP32 and MUFU rates. The note gives the three
+        times and, beside them, the instructions per pair in the hot loop
+        of ``function`` as built, which the bound does not use."""
+        ops = law_ops(form, rcp)
+        t_fp32 = pairs * ops / (sms * FP32_PER_SM_CLK * clk_hz)
+        t_mufu = pairs / (sms * MUFU_PER_SM_CLK * clk_hz)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = max(t_fp32, t_mufu)
+        try:
+            built = "{:.2f} instructions and {:.2f} MUFU per pair".format(
+                *sass_per_pair(library_path(lib), function))
+        except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+            built = f"not counted: {e}"
+        note = (f"{pairs:.4e} pairs, law {ops} FP32 + 1 MUFU per pair: FP32 "
+                f"{t_fp32 * 1e3:.4f} ms, MUFU {t_mufu * 1e3:.4f} ms, bytes "
+                f"{t_bytes * 1e3:.4f} ms; built hot loop {built}")
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes", note)
 
     def timed_ms(fn, reps: int, warmup: int = 2) -> float:
         for _ in range(warmup):
@@ -116,7 +277,35 @@ def main() -> int:
             out[sl, :, 1] = ay.abs().sum(-1)
         return out
 
-    # -- 2. kernel vs plain version at the main path's shapes -----------------
+    def abs_terms(dx, dy, mj, e):
+        ax, ay = pair_accel(dx, dy, mj, e)
+        return ax.abs(), ay.abs()
+
+    def hold(label, got, want, scale):
+        """Fail unless |got - want| <= SUM_ORDER_RTOL * scale everywhere;
+        return the max |d|."""
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{label}: non-finite kernel output")
+        err = (got - want).abs()
+        ratio = (err / scale.clamp_min(1e-30)).max().item()
+        log(f"{label}: max |d| {err.max().item():.3e}, max |d|/sum|c| "
+            f"{ratio:.3e} (bound {SUM_ORDER_RTOL:g})")
+        if not bool((err <= SUM_ORDER_RTOL * scale).all()):
+            raise RuntimeError(f"{label}: kernel disagrees with the plain "
+                               f"version: max |d|/sum|c| {ratio:.3e}")
+        return err.max().item()
+
+    def plain_timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    # -- 2. K3: sweep kernel vs plain version at the main path's shapes -------
     cfg = SimConfig(force_path="bh")
     st = galaxy(seed=0).to(dev).pad_to(256)
     spos, _, smass = morton_sort_state(st.pos, st.vel, st.mass,
@@ -144,23 +333,14 @@ def main() -> int:
     max_abs_err = {}
     for rcp in RCP_MODES:
         full = traversal.grouped_sweep(tgt, sx, sy, sm, SOFTENING2, rcp)
-        bound = traversal.grouped_sweep(tgt, sx, sy, sm, SOFTENING2, rcp,
-                                        col_limit=lim)
+        bounded = traversal.grouped_sweep(tgt, sx, sy, sm, SOFTENING2, rcp,
+                                          col_limit=lim)
         torch.cuda.synchronize()
-        if not torch.isfinite(full).all():
-            raise RuntimeError(f"{rcp}: non-finite kernel output")
-        if not torch.equal(full, bound):
+        if not torch.equal(full, bounded):
             raise RuntimeError(f"{rcp}: bounded sweep differs from the full "
-                               f"sweep (max {(full - bound).abs().max()})")
-        err = (full - plain).abs()
-        max_abs_err[rcp] = err.max().item()
-        ratio = (err / scale.clamp_min(1e-30)).max().item()
-        log(f"rcp={rcp}: kernel vs plain (exact) max |d| "
-            f"{max_abs_err[rcp]:.3e}, max |d|/sum|c| {ratio:.3e} "
-            f"(bound {SUM_ORDER_RTOL:g}); bounded == full bitwise")
-        if not bool((err <= SUM_ORDER_RTOL * scale).all()):
-            raise RuntimeError(f"rcp={rcp}: kernel disagrees with the plain "
-                               f"version: max |d|/sum|c| {ratio:.3e}")
+                               f"sweep (max {(full - bounded).abs().max()})")
+        max_abs_err[rcp] = hold(f"grouped_sweep rcp={rcp} vs plain (exact); "
+                                "bounded == full bitwise", full, plain, scale)
 
     ms_full = timed_ms(lambda: traversal.grouped_sweep(
         tgt, sx, sy, sm, SOFTENING2, main_rcp), reps=50)
@@ -170,9 +350,15 @@ def main() -> int:
         tgt, sx, sy, sm, SOFTENING2, "exact", col_limit=lim), reps=50)
     ms_plain = timed_ms(lambda: traversal.grouped_force_ref(
         tgt, sx, sy, sm, SOFTENING2), reps=5, warmup=1)
+    sweep_pairs = float(lim.sum().item()) * s
+    sweep_bytes = 4.0 * (3 * lim.sum().item() + 4 * g * s) + 4 * g
+    sweep_bound = bound("mono", main_rcp, sweep_pairs, sweep_bytes,
+                        "grouped_sweep",
+                        f"grouped_sweep_kernelILi{RCP_MODES.index(main_rcp)}E")
     log(f"sweep time at (1024, 256, 1280): kernel rcp={main_rcp} full "
         f"{ms_full:.4f} ms, bounded {ms_bound:.4f} ms; kernel exact bounded "
-        f"{ms_exact:.4f} ms; plain torch {ms_plain:.3f} ms")
+        f"{ms_exact:.4f} ms; plain torch {ms_plain:.3f} ms; bound "
+        f"{sweep_bound[0]:.4f} ms by {sweep_bound[1]} ({sweep_bound[2]})")
 
     # -- 3. θ=0 Barnes-Hut equals direct summation ----------------------------
     disc = uniform_disc(16_384, seed=3).to(dev)
@@ -196,8 +382,152 @@ def main() -> int:
         if not ratio.item() <= SUM_ORDER_RTOL:
             raise RuntimeError(f"theta=0 BH ({rcp}) differs from direct sum")
 
-    # -- 4. the main path -----------------------------------------------------
+    # -- 4. K2 and K1 vs their plain versions on the galaxy -------------------
+    pcfg = SimConfig(force_path="pallas")
+    pad = max(pcfg.tile_i, pcfg.tile_j, pcfg.sym_tile)
+    gal = galaxy(seed=0).to(dev).pad_to(pad)
+    gpos, gmass = gal.pos, gal.mass
+    n_gal = gal.n
+    log(f"all-pairs galaxy: N={n_gal} ({gal.n_real} particles, padded to a "
+        f"multiple of {pad}), {n_gal ** 2 / 1e9:.2f}G ordered pairs")
+    sym_plain, ms_sym_plain = plain_timed(
+        lambda: ap.allpairs_accel_sym_ref(gpos, gmass, SOFTENING2))
+    ord_plain, ms_ord_plain = plain_timed(
+        lambda: ap.allpairs_accel_ref(gpos, gmass, None, None, SOFTENING2))
+    gscale = ap.pair_sums(gpos, gpos, gmass, abs_terms, SOFTENING2)
+    sym_err, ord_err = {}, {}
+    for rcp in RCP_MODES:
+        sym = ap.allpairs_accel_sym(gpos, gmass, SOFTENING2, rcp=rcp)
+        ordered = ap.allpairs_accel(gpos, gmass, softening2=SOFTENING2,
+                                    rcp=rcp)
+        sym_err[rcp] = hold(f"allpairs_sym rcp={rcp} vs plain (exact), "
+                            "galaxy", sym, sym_plain, gscale)
+        ord_err[rcp] = hold(f"allpairs rcp={rcp} vs plain (exact), galaxy",
+                            ordered, ord_plain, gscale)
+        hold(f"allpairs_sym vs allpairs, rcp={rcp}, galaxy", sym, ordered,
+             gscale)
+        again = ap.allpairs_accel_sym(gpos, gmass, SOFTENING2, rcp=rcp)
+        torch.cuda.synchronize()
+        if not torch.equal(sym, again):
+            raise RuntimeError(f"allpairs_sym rcp={rcp}: two calls on the "
+                               "same input differ")
+    log("allpairs_sym: two calls bitwise equal in every rcp mode")
+
+    # NaN pattern in `exact` (the JAX package's on the CPU): K2 makes every
+    # row's x NaN and keeps every y finite, the NaN particle's y at 0; K1
+    # keeps every row finite and the NaN particle's row at 0.
+    bad = 5
+    npos = gpos.clone()
+    npos[bad, 0] = float("nan")
+    nsym = ap.allpairs_accel_sym(npos, gmass, SOFTENING2, rcp="exact")
+    nord = ap.allpairs_accel(npos, gmass, softening2=SOFTENING2, rcp="exact")
+    torch.cuda.synchronize()
+    if not (bool(torch.isnan(nsym[:, 0]).all())
+            and bool(torch.isfinite(nsym[:, 1]).all())
+            and nsym[bad, 1].item() == 0.0):
+        raise RuntimeError("allpairs_sym: NaN pattern differs from the JAX "
+                           "package's")
+    if not (bool(torch.isfinite(nord).all())
+            and nord[bad].abs().sum().item() == 0.0):
+        raise RuntimeError("allpairs: NaN pattern differs from the JAX "
+                           "package's")
+    log("NaN pattern (exact, one NaN x): allpairs_sym x NaN in all rows, y "
+        "finite, own y 0; allpairs all finite, own row 0")
+    # Under +clamp, max(NaN, clamp) is NaN (jnp.maximum's rule), so every
+    # pair with the NaN particle is NaN in both components, in every row.
+    for rcp in ("newton+clamp", "approx+clamp"):
+        for label, out in (
+                ("allpairs_sym", ap.allpairs_accel_sym(npos, gmass, SOFTENING2,
+                                                       rcp=rcp)),
+                ("allpairs", ap.allpairs_accel(npos, gmass,
+                                               softening2=SOFTENING2,
+                                               rcp=rcp))):
+            if not bool(torch.isnan(out).all()):
+                raise RuntimeError(f"{label} rcp={rcp}: one NaN x left "
+                                   f"{int((~torch.isnan(out)).sum())} "
+                                   "components not NaN")
+    log("NaN pattern (+clamp, one NaN x): allpairs_sym and allpairs NaN in "
+        "every component")
+
+    # -- 4b. K2, K1 and K6 at small N: one tile, odd and even tile counts, a
+    # ragged last tile (K2 cuts N into tiles of 256 whatever `tile` says).
+    srng = np.random.default_rng(2)
+    for n in SMALL_N:
+        p_ = torch.tensor(srng.uniform(0, 1e5, (n, 2)).astype(np.float32),
+                          device=dev)
+        m_ = torch.tensor(srng.integers(1, 100, n).astype(np.float32),
+                          device=dev)
+        m_[0] = 7.5e7
+        sc = ap.pair_sums(p_, p_, m_, abs_terms, SOFTENING2)
+        sym_want = ap.allpairs_accel_sym_ref(p_, m_, SOFTENING2)
+        ord_want = ap.allpairs_accel_ref(p_, m_, None, None, SOFTENING2)
+        for rcp in ("exact", "newton"):
+            hold(f"allpairs_sym rcp={rcp}, N={n}",
+                 ap.allpairs_accel_sym(p_, m_, SOFTENING2, tile=n, rcp=rcp),
+                 sym_want, sc)
+            hold(f"allpairs rcp={rcp}, N={n}",
+                 ap.allpairs_accel(p_, m_, softening2=SOFTENING2, tile_i=n,
+                                   tile_j=n, rcp=rcp), ord_want, sc)
+        phi_want = en.allpairs_potential_ref(p_, m_, None, None, SOFTENING2)
+        hold(f"potential, N={n} (bound relative per target)",
+             en.allpairs_potential(p_, m_, softening2=SOFTENING2), phi_want,
+             phi_want.abs())
+
+    # -- 5. K2 and K1 on 4,096 sampled targets at N=1M (bench.py's data) ------
+    rng = np.random.default_rng(0)
+    bpos = torch.tensor(rng.uniform(0, 1e5, (N_BIG, 2)).astype(np.float32),
+                        device=dev)
+    bmass = torch.tensor(rng.integers(1, 100, N_BIG).astype(np.float32),
+                         device=dev)
+    rows = torch.tensor(np.sort(np.random.default_rng(1).choice(
+        N_BIG, N_SAMPLED, replace=False)), device=dev)
+    tpos = bpos[rows].contiguous()
+    bplain = ap.allpairs_accel_ref(tpos, None, bpos, bmass, SOFTENING2)
+    bscale = ap.pair_sums(tpos, bpos, bmass, abs_terms, SOFTENING2)
+    for rcp in RCP_MODES:
+        hold(f"allpairs_sym rcp={rcp}, N=1M, {N_SAMPLED} sampled targets",
+             ap.allpairs_accel_sym(bpos, bmass, SOFTENING2, rcp=rcp)[rows],
+             bplain, bscale)
+        hold(f"allpairs rcp={rcp}, N=1M, {N_SAMPLED} sampled targets",
+             ap.allpairs_accel(bpos, bmass, softening2=SOFTENING2,
+                               rcp=rcp)[rows], bplain, bscale)
+
+    # -- 6. K6 vs its plain version on the galaxy -----------------------------
+    phi_plain, ms_pot_plain = plain_timed(
+        lambda: en.allpairs_potential_ref(gpos, gmass, None, None,
+                                          SOFTENING2))
+    phi = en.allpairs_potential(gpos, gmass, softening2=SOFTENING2)
+    pot_err = hold("potential vs plain, galaxy (bound relative per target)",
+                   phi, phi_plain, phi_plain.abs())
+
+    # -- 7. the Barnes-Hut main path ------------------------------------------
     from nbody_simulation_tpu_torch import run
+
+    def lit_pixels(png: Path, world) -> int:
+        if not png.exists() or not png.stat().st_size:
+            return 0
+        try:
+            from PIL import Image
+            return int((np.asarray(Image.open(png))[..., 3] > 0).sum())
+        except ImportError:
+            from nbody_simulation_tpu_torch.ops.raster import render_frame
+            w = world.state
+            return int((render_frame(w.pos, w.vel, w.mass)[..., 3] > 0).sum())
+
+    def check_world(label, world, steps, tmp):
+        pos = world.state.pos[:world.state.n_real]
+        if not bool(torch.isfinite(pos).all()):
+            raise RuntimeError(f"{label}: non-finite positions")
+        mass1 = world.state.mass.double().sum().item()
+        if mass1 != mass0:
+            raise RuntimeError(f"{label}: total mass changed: {mass0} -> "
+                               f"{mass1}")
+        png = Path(tmp) / f"frame_{steps:08d}.png"
+        lit = lit_pixels(png, world)
+        if lit == 0:
+            raise RuntimeError(f"{label}: final frame missing or dark ({png})")
+        log(f"{label} checks: positions finite, mass {mass1:.1f} unchanged, "
+            f"final PNG {png.stat().st_size} bytes with {lit} lit pixels")
 
     mass0 = galaxy(seed=0).mass.double().sum().item()
     with tempfile.TemporaryDirectory() as tmp:
@@ -208,32 +538,13 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = traversal.grouped_sweep.launches
-        png = Path(tmp) / f"frame_{STEPS:08d}.png"
-        png_bytes = png.stat().st_size if png.exists() else 0
-        try:
-            from PIL import Image
-            lit = (int((np.asarray(Image.open(png))[..., 3] > 0).sum())
-                   if png_bytes else 0)
-        except ImportError:
-            from nbody_simulation_tpu_torch.ops.raster import render_frame
-            w = world.state
-            lit = int((render_frame(w.pos, w.vel, w.mass)[..., 3] > 0).sum())
-    log(f"main path: {STEPS} galaxy steps in {wall:.2f} s wall (process "
-        f"start-up, scenario and first launches included); sweep launches "
-        f"{launches}")
-    if launches != STEPS:
-        raise RuntimeError(f"sweep kernel launched {launches} times in "
-                           f"{STEPS} steps")
-    pos = world.state.pos[:world.state.n_real]
-    if not bool(torch.isfinite(pos).all()):
-        raise RuntimeError("non-finite positions after the main path")
-    mass1 = world.state.mass.double().sum().item()
-    if mass1 != mass0:
-        raise RuntimeError(f"total mass changed: {mass0} -> {mass1}")
-    if not png_bytes or lit == 0:
-        raise RuntimeError(f"final frame missing or dark ({png}, {lit} lit)")
-    log(f"main path checks: positions finite, mass {mass1:.1f} unchanged, "
-        f"final PNG {png_bytes} bytes with {lit} lit pixels")
+        log(f"BH main path: {STEPS} galaxy steps in {wall:.2f} s wall "
+            f"(process start-up, scenario and first launches included); "
+            f"sweep launches {launches}")
+        if launches != STEPS:
+            raise RuntimeError(f"sweep kernel launched {launches} times in "
+                               f"{STEPS} steps")
+        check_world("BH main path", world, STEPS, tmp)
 
     # Steady-state rate and the Counting split, on the same world.
     world.run(STEPS)  # warm: covers a full resort cycle
@@ -252,12 +563,141 @@ def main() -> int:
         f"{counting.sum_gravity / n_timed * 1e3:.3f} ms, post_calculations "
         f"{counting.post_calculations / n_timed * 1e3:.3f} ms")
 
-    kernels = {"kernels": [{
-        "name": "grouped_sweep", "route": "cuda",
-        "source": "nbody_simulation_tpu_torch/csrc/grouped_sweep.cu",
-        "replaces": "nbody_simulation_tpu/ops/traversal.py:210",
-        "launches": launches, "max_abs_err": max_abs_err[main_rcp],
-        "ms": ms_bound, "plain_ms": ms_plain}]}
+    # -- 8. the all-pairs main path with energy telemetry ---------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ap.allpairs_sym_cuda.launches = 0
+        ap.allpairs_cuda.launches = 0
+        en.potential_cuda.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            pworld = run.simulate([
+                "--force-path", "pallas", "--energy-every", str(ENERGY_EVERY),
+                "--steps", str(PALLAS_STEPS), "--device", "cuda",
+                "--out", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sym_launches = ap.allpairs_sym_cuda.launches
+        k1_in_pallas = ap.allpairs_cuda.launches
+        pot_launches = en.potential_cuda.launches
+        energy = [(int(mt.group(1)), float(mt.group(2)), float(mt.group(3)))
+                  for mt in re.finditer(
+                      r"energy: step (\d+) E=(\S+) \|dE/E0\|=(\S+)",
+                      buf.getvalue())]
+        for line in buf.getvalue().splitlines():
+            if line.startswith(("energy:", "done:", "len:")):
+                log(f"  run: {line}")
+        log(f"all-pairs main path: {PALLAS_STEPS} galaxy steps in "
+            f"{wall:.2f} s wall; allpairs_sym launches {sym_launches}, "
+            f"allpairs launches {k1_in_pallas}, potential launches "
+            f"{pot_launches}, energy samples {len(energy)}")
+        if sym_launches != PALLAS_STEPS or k1_in_pallas != 0:
+            raise RuntimeError(
+                f"all-pairs path: allpairs_sym called {sym_launches} times "
+                f"and allpairs {k1_in_pallas} times in {PALLAS_STEPS} steps")
+        if not energy or pot_launches != len(energy):
+            raise RuntimeError(f"potential launched {pot_launches} times for "
+                               f"{len(energy)} energy samples")
+        if not all(math.isfinite(e) and math.isfinite(d)
+                   for _, e, d in energy):
+            raise RuntimeError(f"non-finite energy or drift: {energy}")
+        check_world("all-pairs main path", pworld, PALLAS_STEPS, tmp)
+    pworld.run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pworld.run(8)
+    torch.cuda.synchronize()
+    pallas_ups = 8 / (time.perf_counter() - t0)
+    log(f"all-pairs galaxy ups {pallas_ups:.2f} (8 steps, symmetric kernel, "
+        f"rcp={pcfg.resolved_rcp()})")
+
+    # The ordered kernel's path: the same World with sym_allpairs off.
+    ocfg = SimConfig(force_path="pallas", sym_allpairs=False)
+    oworld = World(galaxy(seed=0).to(dev), ocfg)
+    ap.allpairs_cuda.launches = 0
+    ap.allpairs_sym_cuda.launches = 0
+    oworld.run(ORDERED_STEPS)
+    torch.cuda.synchronize()
+    k1_launches = ap.allpairs_cuda.launches
+    k2_in_ordered = ap.allpairs_sym_cuda.launches
+    log(f"ordered all-pairs World: {ORDERED_STEPS} galaxy steps, allpairs "
+        f"launches {k1_launches}, allpairs_sym {k2_in_ordered}")
+    if k1_launches != ORDERED_STEPS or k2_in_ordered != 0:
+        raise RuntimeError("ordered all-pairs World did not run the ordered "
+                           "kernel once per step")
+    if not bool(torch.isfinite(oworld.state.pos).all()):
+        raise RuntimeError("ordered all-pairs World: non-finite positions")
+
+    # -- 9. times -------------------------------------------------------------
+    main_ap = pcfg.resolved_rcp()
+    ms_sym = timed_ms(lambda: ap.allpairs_accel_sym(
+        gpos, gmass, SOFTENING2, rcp=main_ap), reps=10)
+    ms_ord = timed_ms(lambda: ap.allpairs_accel(
+        gpos, gmass, softening2=SOFTENING2, rcp=main_ap), reps=10)
+    ms_pot = timed_ms(lambda: en.allpairs_potential(
+        gpos, gmass, softening2=SOFTENING2), reps=10)
+    gal_bytes = 12.0 * n_gal + 8.0 * n_gal
+    mode = RCP_MODES.index(main_ap)
+    sym_bound = bound("sym", main_ap, n_gal * n_gal / 2.0, gal_bytes,
+                      "allpairs", f"allpairs_sym_roundILi{mode}ELb0E")
+    ord_bound = bound("mono", main_ap, float(n_gal) * n_gal, gal_bytes,
+                      "allpairs", f"ordered_kernelILi{mode}ELb0E")
+    pot_bound = bound("pot", "exact", float(n_gal) * n_gal,
+                      12.0 * n_gal + 4.0 * n_gal, "allpairs",
+                      "ordered_kernelILi0ELb1E")
+    for name, ms, pl_ms, bd in (
+            ("allpairs_sym", ms_sym, ms_sym_plain, sym_bound),
+            ("allpairs", ms_ord, ms_ord_plain, ord_bound),
+            ("potential", ms_pot, ms_pot_plain, pot_bound)):
+        log(f"{name} at the galaxy (N={n_gal}): kernel {ms:.4f} ms, plain "
+            f"{pl_ms:.3f} ms (once), bound {bd[0]:.4f} ms by {bd[1]} "
+            f"({bd[2]})")
+    big = {}
+    for label, fn in (
+            ("allpairs_sym newton", lambda: ap.allpairs_accel_sym(
+                bpos, bmass, SOFTENING2, rcp="newton")),
+            ("allpairs_sym approx+clamp", lambda: ap.allpairs_accel_sym(
+                bpos, bmass, SOFTENING2, rcp="approx+clamp")),
+            ("allpairs newton", lambda: ap.allpairs_accel(
+                bpos, bmass, softening2=SOFTENING2, rcp="newton"))):
+        big[label] = timed_ms(fn, reps=2, warmup=1)
+        log(f"{label} at N={N_BIG}: {big[label]:.2f} ms, "
+            f"{float(N_BIG) ** 2 / (big[label] * 1e-3):.4e} pairs/s (N^2/t)")
+    for label, form, rcp, fn_name, pairs in (
+            ("allpairs_sym newton", "sym", "newton",
+             "allpairs_sym_roundILi1ELb0E", 0.5),
+            ("allpairs_sym approx+clamp", "sym", "approx+clamp",
+             "allpairs_sym_roundILi4ELb0E", 0.5),
+            ("allpairs newton", "mono", "newton", "ordered_kernelILi1ELb0E",
+             1.0)):
+        bd = bound(form, rcp, pairs * N_BIG * N_BIG, 20.0 * N_BIG,
+                   "allpairs", fn_name)
+        log(f"{label} bound at N={N_BIG}: {bd[0]:.2f} ms by {bd[1]} "
+            f"({bd[2]})")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bd):
+        return {"name": name, "route": "cuda",
+                "source": f"nbody_simulation_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None}
+
+    kernels = {"kernels": [
+        entry("grouped_sweep", "grouped_sweep.cu",
+              "nbody_simulation_tpu/ops/traversal.py:210", launches,
+              max_abs_err[main_rcp], ms_bound, ms_plain, sweep_bound),
+        entry("allpairs_sym", "allpairs.cu",
+              "nbody_simulation_tpu/ops/allpairs.py:290", sym_launches,
+              sym_err[main_ap], ms_sym, ms_sym_plain, sym_bound),
+        entry("allpairs", "allpairs.cu",
+              "nbody_simulation_tpu/ops/allpairs.py:537", k1_launches,
+              ord_err[main_ap], ms_ord, ms_ord_plain, ord_bound),
+        entry("potential", "allpairs.cu",
+              "nbody_simulation_tpu/ops/energy.py:118", pot_launches,
+              pot_err, ms_pot, ms_pot_plain, pot_bound),
+    ]}
+    log(f"chip_smoke: every check passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ JAX package stays the reference; this package imports neither JAX nor it.
 The Barnes-Hut galaxy path runs here: Morton sort, tree summaries and the
 planner in plain PyTorch, the grouped force sweep in a hand-written CUDA
 kernel (``csrc/grouped_sweep.cu``), the splat raster, the engine and the
-CLI (``python -m nbody_simulation_tpu_torch.run``).
+CLI (``python -m nbody_simulation_tpu_torch.run``). So do the exact
+all-pairs path (``csrc/allpairs.cu``: ordered and symmetric kernels) and
+the energy diagnostic (K6, also in ``csrc/allpairs.cu``).
 """
 
 from nbody_simulation_tpu_torch.config import SimConfig

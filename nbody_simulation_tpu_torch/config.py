@@ -6,9 +6,9 @@ them equal field by field); that module documents why each default was
 chosen. The defaults are the reference's compile-time consts (reference
 src/main.rs:31-35, src/bvh_tree.rs:37).
 
-Some fields configure paths this package has not ported yet (the all-pairs
-kernels, distributed BH); they are kept so a config round-trips between the
-two packages unchanged.
+Some fields configure paths this package has not ported yet (the quadrupole,
+distributed BH); they are kept so a config round-trips between the two
+packages unchanged.
 """
 
 from __future__ import annotations
@@ -22,6 +22,14 @@ ForcePath = Literal["direct", "pallas", "bh", "ring"]
 # reference's is_normal skip (src/main.rs:240-243) for an L1 clamp —
 # bitwise-identical on finite states. There is no "exact+clamp".
 RCP_MODES = ("exact", "newton", "approx", "newton+clamp", "approx+clamp")
+
+
+def check_rcp(rcp: str) -> int:
+    """Raise ValueError unless ``rcp`` is one of RCP_MODES; return its
+    index, the kernels' mode code (``Mode`` in csrc/pair_law.cuh)."""
+    if rcp not in RCP_MODES:
+        raise ValueError(f"rcp must be one of {RCP_MODES}, got {rcp!r}")
+    return RCP_MODES.index(rcp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +68,8 @@ class SimConfig:
     tile_j: int = 2048
     rcp: str | None = None
 
-    # Symmetric third-law all-pairs kernel (not ported yet).
+    # Symmetric third-law all-pairs kernel (K2) for force_path="pallas";
+    # sym_tile and sym_strips keep the JAX package's divisibility rules.
     sym_allpairs: bool = True
     sym_tile: int = 1024
     sym_strips: int = 4

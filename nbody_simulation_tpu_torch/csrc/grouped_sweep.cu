@@ -9,24 +9,16 @@
 //
 // Computes, for every group g and target s:
 //   out[g,s] = sum_{c < col_limit[g] (or C)} f(src[g,c] - tgt[g,s], m[g,c])
-// with f the reference law of mono_tile (nbody_simulation_tpu/ops/
-// allpairs.py:52-100; reference src/main.rs:234-253) in one of five modes:
-//   0 exact         IEEE division, numerator first (ops/force.py:49)
-//   1 newton        rcp.approx.f32 plus one Newton step
-//   2 approx        rcp.approx.f32 alone
-//   3 newton+clamp  as 1, max(s, L1_CLAMP) in place of the is_normal mask
-//   4 approx+clamp  as 2, likewise
-// Every arithmetic step is an explicit round-to-nearest intrinsic so nvcc
-// contracts nothing into an FMA: the per-pair terms follow the reference's
-// operation order. rcp.approx.f32 is the non-.ftz form, because the
-// s >= FLT_MIN_NORMAL guard assumes subnormal denominators are not flushed.
-// Build without --use_fast_math.
+// with f the reference law of mono_tile in one of the five rcp modes, from
+// pair_law.cuh (shared with the all-pairs kernels).
 //
 // What bounds it: at the galaxy's main-path shape (G=1024 groups, S=256
 // targets, C=1280 columns) the sources are 15.7 MB, read once, and there
-// are 335M pair evaluations, each about 20 FP32 operations and one MUFU
-// reciprocal. So the FP32 and reciprocal pipes bound it, not memory (a
-// data-sheet estimate, to be replaced by the time measured on the card).
+// are 335M pair evaluations (166M within the per-group bounds), each one
+// MUFU reciprocal and 28 SASS instructions in the hot loop (rcp=approx,
+// sm_90a build by nvcc 12.9). So instruction issue bounds it, not memory:
+// chip_smoke.py computes the bound from the card's clock and the
+// instruction count of the built code (PERF.md).
 //
 // What the design does about it: one reciprocal per pair and no reduction
 // across threads. One block per (group, 256-target chunk), one target per
@@ -43,61 +35,15 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_law.cuh"
+
 namespace {
+
+using namespace pair_law;
 
 constexpr int kThreads = 256;  // targets per block
 constexpr int kTile = 1024;    // source columns staged per pass
 constexpr int kRun = 32;       // columns per inner sum (divides kTile)
-constexpr float kFltMinNormal = 1.17549435e-38f;
-constexpr float kFltMax = 3.4028235e38f;
-constexpr float kL1Clamp = 1e-12f;  // ops/allpairs.py:L1_CLAMP
-
-enum Mode { kExact = 0, kNewton = 1, kApprox = 2, kNewtonClamp = 3,
-            kApproxClamp = 4 };
-
-__device__ __forceinline__ float rcp_approx(float x) {
-  float r;
-  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// Accumulate the contribution of one source (displacement dx, dy; mass m)
-// into (ax, ay).
-template <int MODE>
-__device__ __forceinline__ void mono_pair(float dx, float dy, float m,
-                                          float soft2, float& ax, float& ay) {
-  const float s = __fadd_rn(fabsf(dx), fabsf(dy));
-  const float d2 =
-      fmaxf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
-  float cx, cy;
-  if (MODE == kExact) {
-    // pair_accel: is_normal mask, dead lanes divide by 1, select 0.
-    const bool normal = (s >= kFltMinNormal) && (s <= kFltMax);
-    const float den = normal ? __fmul_rn(s, d2) : 1.0f;
-    cx = normal ? __fdiv_rn(__fmul_rn(dx, m), den) : 0.0f;
-    cy = normal ? __fdiv_rn(__fmul_rn(dy, m), den) : 0.0f;
-  } else {
-    float den, r;
-    if (MODE == kNewtonClamp || MODE == kApproxClamp) {
-      den = __fmul_rn(fmaxf(s, kL1Clamp), d2);
-      r = rcp_approx(den);
-      if (MODE == kNewtonClamp)
-        r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
-    } else {
-      const bool normal = (s >= kFltMinNormal) && (s <= kFltMax);
-      den = __fmul_rn(s, d2);
-      r = rcp_approx(den);
-      if (MODE == kNewton)
-        r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
-      r = normal ? r : 0.0f;
-    }
-    const float w = __fmul_rn(m, r);
-    cx = __fmul_rn(dx, w);
-    cy = __fmul_rn(dy, w);
-  }
-  ax = __fadd_rn(ax, cx);
-  ay = __fadd_rn(ay, cy);
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -142,7 +88,10 @@ grouped_sweep_kernel(const float2* __restrict__ tgt,
         for (int j = j0; j < j1; ++j) {
           const float dx = __fsub_rn(sh_x[j], t.x);
           const float dy = __fsub_rn(sh_y[j], t.y);
-          mono_pair<MODE>(dx, dy, sh_m[j], soft2, rx, ry);
+          float cx, cy;
+          mono_pair<MODE>(dx, dy, sh_m[j], soft2, cx, cy);
+          rx = __fadd_rn(rx, cx);
+          ry = __fadd_rn(ry, cy);
         }
         ax = __fadd_rn(ax, rx);
         ay = __fadd_rn(ay, ry);

@@ -1,0 +1,135 @@
+// The reference pair law on the device, shared by every kernel of csrc/.
+//
+// The reference's interaction (reference src/main.rs:234-253) is
+//   a_i += m_j * d / (|d|_1 * max(|d|_2^2, softening2)),  d = p_j - p_i,
+// skipped when |d|_1 is not a normal float. Three forms are used:
+//   mono_pair  the ordered law of mono_tile (nbody_simulation_tpu/ops/
+//              allpairs.py:52-100): K1 and the Barnes-Hut sweep (K3/K5);
+//   sym_r      the shared pair kernel k(d) of _sym_r (allpairs.py:103-137):
+//              K2 applies m_j*d*k to i and -m_i*d*k to j;
+//   pot_term   the counterpart potential of pot_tile (nbody_simulation_tpu/
+//              ops/energy.py:46-56): K6.
+// Each comes in the five rcp modes of config.RCP_MODES:
+//   0 exact         IEEE division
+//   1 newton        rcp.approx.f32 plus one Newton step
+//   2 approx        rcp.approx.f32 alone
+//   3 newton+clamp  as 1, max(s, L1_CLAMP) in place of the is_normal mask
+//   4 approx+clamp  as 2, likewise
+// Every arithmetic step is an explicit round-to-nearest intrinsic so nvcc
+// contracts nothing into an FMA: the terms follow the JAX package's
+// operation order. rcp.approx.f32 is the non-.ftz form, because the
+// s >= FLT_MIN_NORMAL guard assumes subnormal denominators are not flushed.
+// Every max is max_nan, which returns NaN when an operand is NaN, as
+// jnp.maximum does (fmaxf returns the other operand): under +clamp a
+// non-finite position then propagates as NaN, as the JAX kernels document.
+// Build without --use_fast_math.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pair_law {
+
+constexpr float kFltMinNormal = 1.17549435e-38f;
+constexpr float kFltMax = 3.4028235e38f;
+constexpr float kL1Clamp = 1e-12f;  // ops/allpairs.py:L1_CLAMP
+
+enum Mode { kExact = 0, kNewton = 1, kApprox = 2, kNewtonClamp = 3,
+            kApproxClamp = 4 };
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ bool is_normal(float s) {
+  return (s >= kFltMinNormal) && (s <= kFltMax);
+}
+
+// Ordered law: the contribution (cx, cy) of one source (displacement dx, dy;
+// mass m). `exact` is pair_accel's numerator-first division; the other
+// modes multiply by the reciprocal, as mono_tile does.
+template <int MODE>
+__device__ __forceinline__ void mono_pair(float dx, float dy, float m,
+                                          float soft2, float& cx, float& cy) {
+  const float s = __fadd_rn(fabsf(dx), fabsf(dy));
+  const float d2 =
+      max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
+  if (MODE == kExact) {
+    // pair_accel: is_normal mask, dead lanes divide by 1, select 0.
+    const bool normal = is_normal(s);
+    const float den = normal ? __fmul_rn(s, d2) : 1.0f;
+    cx = normal ? __fdiv_rn(__fmul_rn(dx, m), den) : 0.0f;
+    cy = normal ? __fdiv_rn(__fmul_rn(dy, m), den) : 0.0f;
+  } else {
+    float den, r;
+    if (MODE == kNewtonClamp || MODE == kApproxClamp) {
+      den = __fmul_rn(max_nan(s, kL1Clamp), d2);
+      r = rcp_approx(den);
+      if (MODE == kNewtonClamp)
+        r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
+    } else {
+      const bool normal = is_normal(s);
+      den = __fmul_rn(s, d2);
+      r = rcp_approx(den);
+      if (MODE == kNewton)
+        r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
+      r = normal ? r : 0.0f;
+    }
+    const float w = __fmul_rn(m, r);
+    cx = __fmul_rn(dx, w);
+    cy = __fmul_rn(dy, w);
+  }
+}
+
+// Symmetric pair kernel k(d) = 1/(|d|_1 * max(|d|_2^2, eps)), 0 where the
+// mask guard drops the pair. `exact` is 1/den, then the caller multiplies:
+// not pair_accel's numerator-first order (<= 2 ulp apart, as _sym_r says);
+// the JAX order is kept. A masked pair gives k = 0, and the caller's
+// d * (m * k) is then NaN where d is NaN: the JAX kernel's NaN pattern.
+template <int MODE>
+__device__ __forceinline__ float sym_r(float dx, float dy, float soft2) {
+  const float s = __fadd_rn(fabsf(dx), fabsf(dy));
+  const float d2 =
+      max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
+  if (MODE == kNewtonClamp || MODE == kApproxClamp) {
+    const float den = __fmul_rn(max_nan(s, kL1Clamp), d2);
+    float r = rcp_approx(den);
+    if (MODE == kNewtonClamp)
+      r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
+    return r;
+  }
+  const bool normal = is_normal(s);
+  float r;
+  if (MODE == kExact) {
+    r = __fdiv_rn(1.0f, normal ? __fmul_rn(s, d2) : 1.0f);
+  } else {
+    const float den = __fmul_rn(s, d2);
+    r = rcp_approx(den);
+    if (MODE == kNewton)
+      r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
+  }
+  return normal ? r : 0.0f;
+}
+
+// Counterpart potential term -m / sqrt(max(r^2, eps)), 0 where |d|_1 is not
+// normal. __frsqrt_rn is the correctly rounded reciprocal square root, so
+// the term is within 1 ulp of -m/sqrt(d2) (0.5 ulp for the root, 0.5 for
+// the product).
+__device__ __forceinline__ float pot_term(float dx, float dy, float m,
+                                          float soft2) {
+  const float s = __fadd_rn(fabsf(dx), fabsf(dy));
+  const float d2 =
+      max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
+  const float phi = __fmul_rn(-m, __frsqrt_rn(d2));
+  return is_normal(s) ? phi : 0.0f;
+}
+
+}  // namespace pair_law

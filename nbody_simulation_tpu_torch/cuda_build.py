@@ -3,8 +3,10 @@
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 turns ``csrc/<name>.cu`` — a file with a plain C interface and no PyTorch
 headers, so it builds in seconds — into ``_build/lib<name>_<hash>.so``,
-keyed by a hash of the source, and ``ctypes`` loads it. The build runs at
-first use, never at import. A failing ``nvcc`` raises with its stderr.
+keyed by a hash of the source and of every shared header ``csrc/*.cuh``,
+and ``ctypes`` loads it. The build runs at first use, never at import; two
+libraries may build at once from two threads. A failing ``nvcc`` raises
+with its stderr.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -41,15 +44,20 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-hashed)."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed by its content and that of
+    every header in ``csrc/``, so an edited header rebuilds."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<name>.cu``."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         so = library_path(name)

@@ -8,6 +8,10 @@ were computed for (the reference's clone/permute index mismatch, SURVEY.md
 asynchronous launches on the state's device; nothing waits for the device
 until the state is read.
 
+The ``pallas`` path (the all-pairs kernels, named after the JAX package's
+Pallas kernels) runs the symmetric kernel K2 where N is a multiple of the
+symmetric tile and the ordered kernel K1 otherwise.
+
 The Barnes-Hut path keeps the particle arrays in Morton order like the
 reference's in-place partition (src/bvh_tree.rs:74-76): a re-sort every
 ``resort_every`` steps, tree summaries, planner and sweep on every step.
@@ -21,6 +25,8 @@ import numpy as np
 import torch
 
 from nbody_simulation_tpu_torch.config import DEFAULT_CONFIG, SimConfig
+from nbody_simulation_tpu_torch.ops.allpairs import (allpairs_accel,
+                                                     allpairs_accel_sym)
 from nbody_simulation_tpu_torch.ops.force import direct_accel
 from nbody_simulation_tpu_torch.ops.integrate import euler_step, leapfrog_step
 from nbody_simulation_tpu_torch.ops.morton import morton_sort_state
@@ -30,14 +36,6 @@ from nbody_simulation_tpu_torch.ops.tree import summarize_sorted
 from nbody_simulation_tpu_torch.state import ParticleState
 from nbody_simulation_tpu_torch.utils.telemetry import PhaseTimer
 
-_K2_MSG = ("force_path='pallas' needs the symmetric all-pairs kernel (K2, "
-           "allpairs_accel_sym) and the ordered one (K1), which are not "
-           "ported yet: ROADMAP.md, 'TPU kernels, ported and to port', K2")
-
-# Particle count multiple the state is padded to (the JAX package's
-# non-pallas padding, so both packages step identical arrays).
-_PAD = 256
-
 
 def make_accel_fn(config: SimConfig):
     """Resolve config.force_path to a ``(pos, mass) -> accel`` function."""
@@ -46,7 +44,25 @@ def make_accel_fn(config: SimConfig):
     if config.force_path == "bh":
         return bh_accel_fn(config)
     if config.force_path == "pallas":
-        raise NotImplementedError(_K2_MSG)
+        ordered = functools.partial(
+            allpairs_accel, softening2=config.softening2,
+            tile_i=config.tile_i, tile_j=config.tile_j,
+            rcp=config.resolved_rcp())
+        if not config.sym_allpairs:
+            return ordered
+
+        def accel(pos, mass):
+            # The symmetric kernel where the tiling admits it (World pads
+            # to make it so), the ordered one otherwise: the same law up to
+            # f32 summation order (ops/allpairs.allpairs_accel_sym).
+            n = pos.shape[0]
+            if n % min(config.sym_tile, n):
+                return ordered(pos, mass)
+            return allpairs_accel_sym(
+                pos, mass, softening2=config.softening2,
+                tile=config.sym_tile, strips=config.sym_strips,
+                rcp=config.resolved_rcp())
+        return accel
     raise ValueError(f"unknown force_path {config.force_path!r}")
 
 
@@ -61,7 +77,11 @@ class World:
     def __init__(self, state: ParticleState,
                  config: SimConfig = DEFAULT_CONFIG):
         self.config = config
-        self.state = state.pad_to(_PAD)
+        # The JAX World's padding, so both packages step identical arrays.
+        pad = (max(config.tile_i, config.tile_j,
+                   config.sym_tile if config.sym_allpairs else 0)
+               if config.force_path == "pallas" else 256)
+        self.state = state.pad_to(pad)
         self.updates = 0
         self._build_step(config)
 

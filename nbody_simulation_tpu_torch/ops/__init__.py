@@ -1,3 +1,10 @@
+from nbody_simulation_tpu_torch.ops.allpairs import (allpairs_accel,
+                                                     allpairs_accel_sym)
+from nbody_simulation_tpu_torch.ops.energy import (allpairs_potential,
+                                                   bh_total_energy,
+                                                   kinetic_energy,
+                                                   potential_energy,
+                                                   total_energy)
 from nbody_simulation_tpu_torch.ops.force import (FLT_MIN_NORMAL, direct_accel,
                                                   direct_accel_at, pair_accel)
 from nbody_simulation_tpu_torch.ops.integrate import euler_step, leapfrog_step
@@ -15,6 +22,13 @@ __all__ = [
     "pair_accel",
     "direct_accel",
     "direct_accel_at",
+    "allpairs_accel",
+    "allpairs_accel_sym",
+    "allpairs_potential",
+    "bh_total_energy",
+    "kinetic_energy",
+    "potential_energy",
+    "total_energy",
     "euler_step",
     "leapfrog_step",
     "morton_order",

@@ -1,0 +1,265 @@
+"""Exact all-pairs forces: the ordered sweep (K1) and the symmetric
+third-law sweep (K2).
+
+The port of ``nbody_simulation_tpu/ops/allpairs.py``. ``allpairs_accel``
+and ``allpairs_accel_sym`` keep the JAX signatures, checks and errors; a
+CUDA tensor launches the hand-written kernel of ``csrc/allpairs.cu``
+(``allpairs_cuda``, ``allpairs_sym_cuda``), a CPU tensor runs the plain
+version, and any other device raises. The plain versions always compute
+``exact``, as the JAX package's CPU (interpret) path does; ``rcp`` is then
+validated only.
+
+The JAX tile arguments (``tile_i``, ``tile_j``, ``tile``, ``strips``) keep
+their divisibility checks, so the same calls raise the same errors; they
+size VMEM blocks on the TPU and do not shape the CUDA kernels, which take
+any N.
+
+Non-finite positions. The symmetric law multiplies ``d · (m · k)`` after
+the mask has set ``k`` to 0, and NaN·0 is NaN: one NaN x-coordinate makes
+the x-component of every row NaN, while every y-component stays finite and
+the NaN particle's own y is 0. The ordered law in ``exact`` selects 0 for a
+masked pair instead, so every row stays finite and the NaN particle's row
+is 0. Both match the JAX package on the CPU (tests/test_torch_allpairs.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nbody_simulation_tpu_torch.config import check_rcp
+from nbody_simulation_tpu_torch.ops.force import (FLT_MAX, FLT_MIN_NORMAL,
+                                                  pair_accel)
+
+# Pair terms per chunk of the plain sums: the (rows, Nj) temporaries stay
+# near this many elements (the galaxy's full N² would be 92 GB each).
+_CHUNK_ELEMS = 1 << 25
+
+
+def mono_tile(dx: torch.Tensor, dy: torch.Tensor, mj: torch.Tensor,
+              softening2: float = 1e-3, rcp: str = "exact"):
+    """The ordered law's plain version: contributions ``(cx, cy)``.
+
+    Always ``exact`` — ``pair_accel``, the reference law op for op — as the
+    JAX package's CPU path computes it; ``rcp`` is validated only. The other
+    modes exist only in the kernel (``csrc/pair_law.cuh``)."""
+    check_rcp(rcp)
+    return pair_accel(dx, dy, mj, softening2)
+
+
+def sym_r(dx: torch.Tensor, dy: torch.Tensor,
+          softening2: float = 1e-3) -> torch.Tensor:
+    """The symmetric pair kernel k(d) = 1/(‖d‖₁·max(‖d‖₂², ε)) in ``exact``
+    (``_sym_r``): ``1/den`` first and the mass products after, as the JAX
+    package orders it (≤2 ulp from ``pair_accel``'s numerator-first
+    order). Masked pairs give 0."""
+    s = dx.abs() + dy.abs()
+    normal = (s >= FLT_MIN_NORMAL) & (s <= FLT_MAX)
+    d2 = torch.clamp_min(dx * dx + dy * dy, softening2)
+    one = torch.ones((), dtype=s.dtype, device=s.device)
+    r = torch.reciprocal(torch.where(normal, s * d2, one))
+    return torch.where(normal, r, torch.zeros_like(one))
+
+
+def _sym_term(dx, dy, mj, softening2):
+    w = mj * sym_r(dx, dy, softening2)
+    return dx * w, dy * w
+
+
+def pair_sums(tpos: torch.Tensor, spos: torch.Tensor, smass: torch.Tensor,
+              term, softening2: float) -> torch.Tensor:
+    """Σ_j term(p_j − p_i, m_j) per target: ``term(dx, dy, mj, softening2)``
+    returns a tuple of K (rows, Nj) tensors; the result is (Ni, K). Targets
+    are taken in chunks of about ``_CHUNK_ELEMS`` pair terms."""
+    nj = spos.shape[0]
+    rows = max(1, _CHUNK_ELEMS // max(1, nj))
+    x, y = spos[:, 0], spos[:, 1]
+    parts = []
+    for start in range(0, tpos.shape[0], rows):
+        t = tpos[start:start + rows]
+        terms = term(x[None, :] - t[:, 0:1], y[None, :] - t[:, 1:2],
+                     smass[None, :], softening2)
+        parts.append(torch.stack([c.sum(dim=1) for c in terms], dim=1))
+    return torch.cat(parts)
+
+
+def allpairs_accel_ref(pos: torch.Tensor, mass: torch.Tensor,
+                       src_pos: torch.Tensor | None = None,
+                       src_mass: torch.Tensor | None = None,
+                       softening2: float = 1e-3) -> torch.Tensor:
+    """K1's plain version: f32[Ni, 2] from sources (default: the targets),
+    each pair by ``pair_accel``."""
+    if src_pos is None:
+        src_pos, src_mass = pos, mass
+    return pair_sums(pos, src_pos, src_mass, mono_tile, softening2)
+
+
+def allpairs_accel_sym_ref(pos: torch.Tensor, mass: torch.Tensor,
+                           softening2: float = 1e-3) -> torch.Tensor:
+    """K2's plain version: every ordered pair by the symmetric law,
+    ``d · (m_j · k(d))``. From j's side the kernel subtracts
+    ``d · (m_i · k(d))``, which is bitwise ``(−d) · (m_i · k(−d))``, so
+    the ordered sum is the same function."""
+    return pair_sums(pos, pos, mass, _sym_term, softening2)
+
+
+# -- the CUDA kernels ---------------------------------------------------------
+
+_lib = None
+
+
+def _load_lib():
+    global _lib
+    if _lib is None:
+        from nbody_simulation_tpu_torch.cuda_build import load_cuda_library
+        lib = load_cuda_library("allpairs")
+        lib.allpairs_launch.restype = ctypes.c_int
+        lib.allpairs_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.allpairs_sym_launch.restype = ctypes.c_int
+        lib.allpairs_sym_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.potential_launch.restype = ctypes.c_int
+        lib.potential_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        _lib = lib
+    return _lib
+
+
+def check_cuda_inputs(name: str, pairs) -> None:
+    """Raise unless every ``(tensor, shape)`` is a contiguous f32 CUDA
+    tensor of that shape on one device, with int32-indexable sizes."""
+    dev = pairs[0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    for t, shape in pairs:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}, one is "
+                             f"on {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} needs float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors")
+        if t.numel() >= 2**31:
+            raise ValueError(f"{name}: shape {shape} too large for int32 "
+                             "indexing")
+
+
+def allpairs_cuda(pos: torch.Tensor, src_pos: torch.Tensor,
+                  src_mass: torch.Tensor, softening2: float = 1e-3,
+                  rcp: str = "newton") -> torch.Tensor:
+    """Launch K1 (``csrc/allpairs.cu``): targets f32 (Ni, 2) against
+    sources f32 (Nj, 2) with masses f32 (Nj,), all contiguous on one CUDA
+    device. Anything else raises; there is no fallback.
+    ``allpairs_cuda.launches`` counts the launches."""
+    mode = check_rcp(rcp)
+    ni, nj = pos.shape[0], src_pos.shape[0]
+    check_cuda_inputs("allpairs_cuda", [(pos, (ni, 2)), (src_pos, (nj, 2)),
+                                        (src_mass, (nj,))])
+    out = torch.empty_like(pos)
+    err = _load_lib().allpairs_launch(
+        pos.data_ptr(), src_pos.data_ptr(), src_mass.data_ptr(),
+        out.data_ptr(), ni, nj, float(softening2), mode,
+        pos.device.index or 0,
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"allpairs kernel launch failed: CUDA error {err} "
+                           f"at Ni={ni}, Nj={nj}, rcp={rcp}")
+    allpairs_cuda.launches += 1
+    return out
+
+
+allpairs_cuda.launches = 0
+
+
+def allpairs_sym_cuda(pos: torch.Tensor, mass: torch.Tensor,
+                      softening2: float = 1e-3,
+                      rcp: str = "newton") -> torch.Tensor:
+    """Launch K2 (``csrc/allpairs.cu``): f32 (N, 2) positions and f32 (N,)
+    masses, contiguous on one CUDA device. One call launches one kernel per
+    tournament round plus a finishing one, and counts once in
+    ``allpairs_sym_cuda.launches``. Anything else raises; there is no
+    fallback. The f64 scratch is (2, N, 2)."""
+    mode = check_rcp(rcp)
+    n = pos.shape[0]
+    check_cuda_inputs("allpairs_sym_cuda", [(pos, (n, 2)), (mass, (n,))])
+    acc = torch.zeros((2, n, 2), dtype=torch.float64, device=pos.device)
+    out = torch.empty_like(pos)
+    err = _load_lib().allpairs_sym_launch(
+        pos.data_ptr(), mass.data_ptr(), acc.data_ptr(), out.data_ptr(), n,
+        float(softening2), mode, pos.device.index or 0,
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"allpairs_sym kernel launch failed: CUDA error "
+                           f"{err} at N={n}, rcp={rcp}")
+    allpairs_sym_cuda.launches += 1
+    return out
+
+
+allpairs_sym_cuda.launches = 0
+
+
+# -- the entry points ---------------------------------------------------------
+
+def allpairs_accel_sym(pos: torch.Tensor, mass: torch.Tensor,
+                       softening2: float = 1e-3, tile: int = 1024,
+                       rcp: str = "newton", strips: int = 4) -> torch.Tensor:
+    """Self-interaction all-pairs acceleration by the symmetric kernel (K2):
+    each unordered pair evaluated once and applied to both particles. Same
+    law as ``allpairs_accel(pos, mass)`` up to f32 summation order for
+    finite inputs (non-finite ones: the module docstring).
+
+    N must be a multiple of ``min(tile, N)``, and ``tile`` of the clipped
+    ``strips``, as in the JAX package."""
+    n = pos.shape[0]
+    tile = min(tile, n)
+    if n % tile:
+        raise ValueError(f"N={n} not divisible by tile {tile}")
+    strips = max(1, min(strips, tile // 8))
+    if tile % strips:
+        raise ValueError(f"tile={tile} not divisible by strips {strips}")
+    check_rcp(rcp)
+    if pos.device.type == "cuda":
+        return allpairs_sym_cuda(pos, mass, softening2, rcp)
+    if pos.device.type == "cpu":
+        return allpairs_accel_sym_ref(pos, mass, softening2)
+    raise ValueError(f"no all-pairs kernel for device {pos.device}")
+
+
+def allpairs_accel(pos: torch.Tensor, mass: torch.Tensor,
+                   src_pos: torch.Tensor | None = None,
+                   src_mass: torch.Tensor | None = None,
+                   softening2: float = 1e-3, tile_i: int = 512,
+                   tile_j: int = 2048, rcp: str = "newton") -> torch.Tensor:
+    """Acceleration of targets ``pos`` f32[Ni, 2] due to sources (default:
+    themselves) ``src_pos`` f32[Nj, 2], ``src_mass`` f32[Nj] by the ordered
+    kernel (K1). Ni and Nj must be multiples of the (clipped) tiles, as in
+    the JAX package.
+
+    ``rcp``: "exact" (IEEE division, the reference bit for bit), "newton"
+    (hardware reciprocal plus one Newton step), "approx" (the hardware
+    reciprocal alone), and their "+clamp" forms, which replace the
+    is_normal mask by an L1 clamp (config.RCP_MODES)."""
+    if src_pos is None:
+        src_pos = pos
+    if src_mass is None:
+        src_mass = mass
+    ni, nj = pos.shape[0], src_pos.shape[0]
+    tile_i = min(tile_i, ni)
+    tile_j = min(tile_j, nj)
+    if ni % tile_i or nj % tile_j:
+        raise ValueError(
+            f"N=({ni},{nj}) not divisible by tiles ({tile_i},{tile_j})")
+    check_rcp(rcp)
+    if pos.device.type == "cuda":
+        return allpairs_cuda(pos, src_pos, src_mass, softening2, rcp)
+    if pos.device.type == "cpu":
+        return allpairs_accel_ref(pos, mass, src_pos, src_mass, softening2)
+    raise ValueError(f"no all-pairs kernel for device {pos.device}")

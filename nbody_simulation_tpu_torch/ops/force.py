@@ -20,6 +20,8 @@ import torch
 
 # Smallest positive normal f32 — the threshold of Rust's f32::is_normal.
 FLT_MIN_NORMAL = 1.17549435e-38
+# Largest finite f32: ``s <= FLT_MAX`` is false for inf and NaN.
+FLT_MAX = 3.4028235e38
 
 
 def pair_accel(dx: torch.Tensor, dy: torch.Tensor, mass_j: torch.Tensor,

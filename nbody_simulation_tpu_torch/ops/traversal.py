@@ -30,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from nbody_simulation_tpu_torch.config import RCP_MODES
+from nbody_simulation_tpu_torch.config import check_rcp
 from nbody_simulation_tpu_torch.ops.force import pair_accel
 from nbody_simulation_tpu_torch.ops.tree import BIG, FlatTree, build_tree
 
@@ -223,11 +223,6 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
 
 # -- the force sweep ----------------------------------------------------------
 
-def _check_rcp(rcp: str) -> None:
-    if rcp not in RCP_MODES:
-        raise ValueError(f"rcp must be one of {RCP_MODES}, got {rcp!r}")
-
-
 _REF_CHUNK_ELEMS = 1 << 25
 
 
@@ -245,7 +240,7 @@ def grouped_force_ref(tgt: torch.Tensor, src_x: torch.Tensor,
     ``_REF_CHUNK_ELEMS`` elements (the whole galaxy sweep would be 1.3 GB
     each).
     """
-    _check_rcp(rcp)
+    check_rcp(rcp)
     g, s, _ = tgt.shape
     c = src_x.shape[1]
     out = torch.empty_like(tgt)
@@ -266,7 +261,6 @@ def grouped_force_ref(tgt: torch.Tensor, src_x: torch.Tensor,
     return out
 
 
-_RCP_CODE = {m: i for i, m in enumerate(RCP_MODES)}
 _sweep_lib = None
 
 
@@ -294,7 +288,7 @@ def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
     raises; there is no fallback. ``grouped_sweep.launches`` counts the
     launches.
     """
-    _check_rcp(rcp)
+    mode = check_rcp(rcp)
     if tgt.device.type != "cuda":
         raise ValueError(f"grouped_sweep needs CUDA tensors, got {tgt.device}")
     if tgt.ndim != 3 or tgt.shape[2] != 2:
@@ -328,7 +322,7 @@ def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
     err = lib.grouped_sweep_launch(
         tgt.data_ptr(), src_x.data_ptr(), src_y.data_ptr(), src_m.data_ptr(),
         None if col_limit is None else col_limit.data_ptr(), out.data_ptr(),
-        g, s, c, float(softening2), _RCP_CODE[rcp], tgt.device.index or 0,
+        g, s, c, float(softening2), mode, tgt.device.index or 0,
         torch.cuda.current_stream(tgt.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped_sweep kernel launch failed: CUDA error "
@@ -349,7 +343,7 @@ def grouped_force(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
     CUDA tensors launch the kernel (``grouped_sweep``); CPU tensors run the
     plain version (``grouped_force_ref``, always ``exact``).
     """
-    _check_rcp(rcp)
+    check_rcp(rcp)
     if tgt.device.type == "cuda":
         return grouped_sweep(tgt, src_x, src_y, src_m, softening2, rcp,
                              col_limit)

@@ -7,9 +7,11 @@ frames and prints the once-per-second fps/ups/step/Counting telemetry
 (src/main.rs:148-156 semantics).
 
 With no flags it runs the reference galaxy (151,317 particles) with
-Barnes-Hut at θ=50 on the GPU. ``--device`` (default ``cuda``) replaces the
-JAX package's ``--platform``; a CUDA run on a machine without CUDA raises
-rather than running on the CPU. Flags of modules not ported yet raise.
+Barnes-Hut at θ=50 on the GPU; ``--force-path pallas`` runs the exact
+all-pairs kernels instead, and ``--energy-every K`` prints the total energy
+every K steps. ``--device`` (default ``cuda``) replaces the JAX package's
+``--platform``; a CUDA run on a machine without CUDA raises rather than
+running on the CPU. Flags of modules not ported yet raise.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ _NOT_PORTED = {
     "checkpoint": "ROADMAP item 1, checkpoint",
     "record": "ROADMAP item 2, recording",
     "gif": "ROADMAP item 2, recording",
-    "energy_every": "ROADMAP item 3, energy",
     "serve": "ROADMAP item 4, viewer",
 }
 
@@ -42,7 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--force-path", default="bh",
                    choices=["direct", "pallas", "bh"],
-                   help="'pallas' (the all-pairs kernels) is not ported yet")
+                   help="'bh' Barnes-Hut (the grouped sweep kernel), "
+                        "'pallas' the exact all-pairs kernels (symmetric "
+                        "third-law kernel where N allows, else the ordered "
+                        "one), 'direct' plain torch")
     p.add_argument("--theta", type=float, default=50.0,
                    help="reference convention: accept when s/d < theta")
     p.add_argument("--dt", type=float, default=0.1)
@@ -75,9 +79,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weighted-leaf-com", action="store_true",
                    help="fix the reference's unweighted-leaf-COM quirk")
     p.add_argument("--energy-every", type=int, default=0, metavar="K",
-                   help="steps between total-energy prints (not ported yet)")
+                   help="steps between live total-energy prints (0 = off): "
+                        "E = KE + U under the conservative counterpart law "
+                        "(ops/energy.py; the reference's own law is non-"
+                        "conservative) plus |dE/E0| drift since start")
     p.add_argument("--energy-method", choices=("exact", "bh"),
-                   default="exact")
+                   default="exact",
+                   help="exact: O(N²/2) pair sweep per sample (the potential "
+                        "kernel); bh: O(N·C) θ-consistent BH-planned "
+                        "approximation (ops/energy.bh_total_energy)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--serve", type=int, default=0, metavar="PORT",
                    help="live browser viewer (not ported yet)")
@@ -105,11 +115,6 @@ def simulate(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not yet ported ({item})")
-    if args.force_path == "pallas":
-        raise NotImplementedError(
-            "--force-path pallas needs the all-pairs kernels K1/K2, which "
-            "are not yet ported (ROADMAP.md, 'TPU kernels, ported and to "
-            "port', K2)")
 
     import torch
 
@@ -124,7 +129,8 @@ def simulate(argv=None):
                                                    plummer, uniform_disc)
     from nbody_simulation_tpu_torch.runtime.engine import Engine
     from nbody_simulation_tpu_torch.utils.pngio import save_png
-    from nbody_simulation_tpu_torch.utils.telemetry import RateMeter
+    from nbody_simulation_tpu_torch.utils.telemetry import (EnergyMeter,
+                                                            RateMeter)
 
     buckets = (None if args.sweep_buckets in ("auto", "off") else
                tuple(float(v) for v in args.sweep_buckets.split(",")))
@@ -147,8 +153,14 @@ def simulate(argv=None):
     emit(f"len: {state.n_real}")  # reference prints this (src/main.rs:343)
 
     world = World(state.to(device), cfg)
+    on_batch = None
+    if args.energy_every:
+        on_batch = EnergyMeter(args.energy_every, emit=emit,
+                               softening2=cfg.softening2,
+                               method=args.energy_method)
     engine = Engine(world, snapshot_interval=args.snapshot_interval,
-                    steps_per_snapshot=args.steps_per_snapshot)
+                    steps_per_snapshot=args.steps_per_snapshot,
+                    on_batch=on_batch)
     meter = RateMeter(emit=emit)
 
     if args.out:

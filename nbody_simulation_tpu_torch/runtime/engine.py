@@ -76,7 +76,7 @@ class Engine:
     def __init__(self, world: World, queue_depth: int = 2,
                  steps_per_snapshot: int = 1, include_particles: bool = False,
                  nan_check_every: int = 0, snapshot_interval: float = 0.25,
-                 profile_every: int = 50):
+                 profile_every: int = 50, on_batch=None):
         """``snapshot_interval``: minimum seconds between rendered snapshots.
         The reference gets ups≫fps for free (render on its own thread); here
         the frame readback shares the producer thread (see _render_snapshot),
@@ -92,8 +92,13 @@ class Engine:
 
         ``nan_check_every``: every k steps, ``World.assert_finite`` on the
         producer thread; a divergence stops the engine and ``stop()``
-        raises it. 0 disables."""
+        raises it. 0 disables.
+
+        ``on_batch``: optional callable ``f(world)`` called on the producer
+        thread after every step batch, the one place ``world.state`` may be
+        read while the engine runs (``utils/telemetry.EnergyMeter``)."""
         self.world = world
+        self.on_batch = on_batch
         self.include_particles = include_particles
         self.nan_check_every = nan_check_every
         self.snapshot_interval = snapshot_interval
@@ -227,6 +232,8 @@ class Engine:
                 if (self.nan_check_every
                         and self.world.updates % self.nan_check_every == 0):
                     self.world.assert_finite()  # raises → surfaced by stop()
+                if self.on_batch is not None:
+                    self.on_batch(self.world)
                 now = time.monotonic()
                 if self._snapshot_due(now, paused=False):
                     self.queue.try_push(self._render_snapshot())

@@ -51,6 +51,52 @@ class PhaseTimer:
         return False
 
 
+class EnergyMeter:
+    """Cadence total-energy telemetry for the Engine's ``on_batch`` hook.
+
+    Every ``every`` steps it evaluates E = KE + U under the conservative
+    counterpart law (ops/energy.py) and prints the drift relative to the
+    first sample, in the JAX package's format. ``method`` is "exact" (the
+    O(N²/2) pair sweep, kernel K6 on the card) or "bh" (the O(N·C)
+    Barnes-Hut planned approximation). Samples are kept in ``samples`` as
+    (step, energy). A sharded world (one with a ``mesh``) is not supported
+    yet: ROADMAP.md item 6, multi-device.
+    """
+
+    def __init__(self, every: int, emit=print, softening2: float = 1e-3,
+                 method: str = "exact"):
+        if method not in ("exact", "bh"):
+            raise ValueError(f"method must be 'exact' or 'bh', got {method!r}")
+        self.every = max(1, every)
+        self.emit = emit
+        self.softening2 = softening2
+        self.method = method
+        self.e0: float | None = None
+        self.samples: list[tuple[int, float]] = []
+        self._last = None
+
+    def __call__(self, world) -> None:
+        step = world.updates
+        if self._last is not None and step - self._last < self.every:
+            return
+        self._last = step
+        if getattr(world, "mesh", None) is not None:
+            raise NotImplementedError(
+                "EnergyMeter on a sharded world is not yet ported (ROADMAP.md "
+                "item 6, multi-device)")
+        from nbody_simulation_tpu_torch.ops.energy import (bh_total_energy,
+                                                           total_energy)
+        if self.method == "bh":
+            e = float(bh_total_energy(world.state, world.config))
+        else:
+            e = float(total_energy(world.state, softening2=self.softening2))
+        if self.e0 is None:
+            self.e0 = e
+        drift = abs(e - self.e0) / max(abs(self.e0), 1e-30)
+        self.samples.append((step, e))
+        self.emit(f"energy: step {step} E={e:.6e} |dE/E0|={drift:.3e}")
+
+
 class RateMeter:
     """Once-per-second fps/ups printer (src/main.rs:148-156 semantics)."""
 

@@ -1,5 +1,5 @@
-"""The port's main path as a whole: the Barnes-Hut World against the JAX
-World, and the CLI on the CPU.
+"""The port's main paths as a whole: the Barnes-Hut and all-pairs Worlds
+against the JAX World, and the CLI on the CPU.
 
 Tolerances. Per step the two packages differ only in f32 summation order
 (the sweep's sums and the leaf COM sums): ~1e-6 of an acceleration, whose
@@ -97,6 +97,27 @@ def test_step_timed_and_diagnostics():
         w.assert_finite()
 
 
+PALLAS_KW = dict(force_path="pallas", tile_i=64, tile_j=128, sym_tile=128)
+
+
+def _pallas_worlds_after_8_steps(sym_allpairs):
+    """The JAX and port all-pairs Worlds from one N=512 state after 8 steps
+    (the symmetric kernel's tournament has nt=4 tiles, the ordered kernel
+    8×4)."""
+    kw = dict(PALLAS_KW, sym_allpairs=sym_allpairs)
+    jst = juniform(512, seed=2)
+    jw = JaxWorld(jst, JaxConfig(**kw))
+    tw = World(state_from_numpy(np.asarray(jst.pos), np.asarray(jst.vel),
+                                np.asarray(jst.mass)), SimConfig(**kw))
+    assert tw.state.n == jw.state.n == 512
+    jw.run(8)
+    tw.run(8)
+    assert tw.updates == jw.updates == 8
+    return ({k: np.asarray(getattr(jw.state, k)) for k in ("pos", "vel",
+                                                          "mass")},
+            {k: getattr(tw.state, k).numpy() for k in ("pos", "vel", "mass")})
+
+
 def test_direct_world_and_pallas_refusal():
     st = juniform(300, seed=2)
     w = World(state_from_numpy(np.asarray(st.pos), np.asarray(st.vel),
@@ -104,8 +125,12 @@ def test_direct_world_and_pallas_refusal():
               SimConfig(force_path="direct", integrator="leapfrog"))
     w.run(2)
     assert w.updates == 2 and np.isfinite(w.state.pos.numpy()).all()
-    with pytest.raises(NotImplementedError, match="K2"):
-        World(w.state, SimConfig(force_path="pallas"))
+    # The all-pairs path: the symmetric kernel, as the JAX World runs it.
+    _check_close(*_pallas_worlds_after_8_steps(sym_allpairs=True))
+
+
+def test_pallas_world_with_the_ordered_kernel_matches_jax():
+    _check_close(*_pallas_worlds_after_8_steps(sym_allpairs=False))
 
 
 def test_engine_pause_step_reconfigure():
@@ -141,6 +166,21 @@ def test_engine_pause_step_reconfigure():
         bad.stop()
 
 
+def test_engine_calls_on_batch_once_per_batch():
+    st = juniform(256, seed=4)
+    w = World(state_from_numpy(np.asarray(st.pos), np.asarray(st.vel),
+                               np.asarray(st.mass)),
+              SimConfig(force_path="direct", render_size=100))
+    seen = []
+    eng = Engine(w, steps_per_snapshot=3, snapshot_interval=0.0,
+                 on_batch=lambda world: seen.append(world.updates))
+    eng.start(max_steps=10)
+    eng.join(timeout=60)
+    eng.stop()
+    assert not eng._thread.is_alive()
+    assert seen == [3, 6, 9, 10]
+
+
 def test_snapshot_wire_format_round_trip():
     frame = np.arange(5 * 3 * 4, dtype=np.uint8).reshape(5, 3, 4)
     pos = np.arange(8, dtype=np.float32).reshape(4, 2)
@@ -170,10 +210,25 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tmp_path,
                   "--out", str(tmp_path)])
 
 
+@pytest.mark.parametrize("method", ["exact", "bh"])
+def test_cli_pallas_path_prints_energy(tmp_path, capsys, method):
+    rc = run.main(["--device", "cpu", "--force-path", "pallas", "--scenario",
+                   "uniform", "--n", "1024", "--energy-every", "5",
+                   "--energy-method", method, "--steps", "10",
+                   "--steps-per-snapshot", "5", "--out", str(tmp_path)])
+    assert rc == 0
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("energy:")]
+    assert [ln.split(" E=")[0] for ln in lines] == [
+        "energy: step 5", "energy: step 10"]
+    assert "|dE/E0|=0.000e+00" in lines[0]
+    assert "done: 10 steps" in out
+    assert (tmp_path / "frame_00000010.png").exists()
+
+
 @pytest.mark.parametrize("flags", [
     ["--resume", "x.npz"], ["--checkpoint", "x.npz"], ["--record", "r.bin"],
-    ["--gif", "a.gif"], ["--energy-every", "5"], ["--serve", "8000"],
-    ["--force-path", "pallas"],
+    ["--gif", "a.gif"], ["--serve", "8000"],
 ])
 def test_cli_flags_not_yet_ported_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
