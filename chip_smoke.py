@@ -10,6 +10,12 @@ version at the main paths' shapes:
 
 - the Barnes-Hut sweep (K3/K5) at the galaxy's planned shape, then θ=0
   Barnes-Hut against an f64 direct sum;
+- the quadrupole sweep (K4) in all five rcp modes on a 65,536-body
+  Plummer cluster at θ=0.5 with mass-weighted leaf COMs, at one leaf per
+  planning row (the force-error shape) and at the CLI's four, and in
+  ``newton`` on the θ=0.5 galaxy's columns; the force error against an
+  f64 direct sum beside the monopole's, and θ=0 with the quadrupole
+  against the f64 sum;
 - the symmetric (K2) and ordered (K1) all-pairs kernels in all five rcp
   modes on the galaxy and on 4,096 sampled targets at N=1,048,576, K2's
   determinism, K2 against K1, and the NaN pattern of both in ``exact``
@@ -19,14 +25,19 @@ version at the main paths' shapes:
 - K6 on the galaxy.
 
 Then it drives the main paths through the CLI: the Barnes-Hut galaxy
-(``python -m nbody_simulation_tpu_torch.run`` defaults) for 64 steps, and
-the all-pairs galaxy with energy telemetry (``--force-path pallas
---energy-every 8``) for 32 steps, plus 4 steps of the ordered all-pairs
-World (``sym_allpairs=False``); each run zeroes the kernels' launch counts
-just before and reads them just after. Every check that fails raises, and
-the exit code is then nonzero. Progress lines carry the card's name and
-power limit. The last three lines are the kernel table as JSON, the card,
-and ``{"ok": true, "device": {...}}``.
+(``python -m nbody_simulation_tpu_torch.run`` defaults) for 64 steps, the
+θ=0.5 Plummer cluster (``--scenario plummer --n 65536 --theta 0.5
+--weighted-leaf-com --energy-every 8``) for 32 steps, the all-pairs galaxy
+with energy telemetry (``--force-path pallas --energy-every 8``) for 32
+steps, plus 8 steps of the galaxy World at θ=0.5 and 4 of the ordered
+all-pairs World (``sym_allpairs=False``); each run zeroes the kernels'
+launch counts just before and reads them just after. Four steps of each
+Barnes-Hut world are traced with torch.profiler (device time and
+operations per step, the sweep kernel's share; a trace without device
+time for the step or the sweep kernel fails). Every check that fails
+raises, and the exit code is then nonzero. Progress lines carry the card's
+name and power limit. The last three lines are the kernel table as JSON,
+the card, and ``{"ok": true, "device": {...}}``.
 
 Nothing of JAX is imported: the card's machine has none.
 """
@@ -61,6 +72,9 @@ SOFTENING2 = 1e-3
 # term has one sign, so Σ|c| = |φ| and the bound is relative per target.
 SUM_ORDER_RTOL = 1e-5
 STEPS = 64           # Barnes-Hut main path
+QUAD_STEPS = 32      # θ=0.5 Plummer path (K4)
+QUAD_GALAXY_STEPS = 8
+N_PLUMMER = 65_536
 PALLAS_STEPS = 32    # all-pairs main path
 ENERGY_EVERY = 8
 ORDERED_STEPS = 4    # the ordered all-pairs World
@@ -73,20 +87,34 @@ MUFU_PER_SM_CLK = 16          # reciprocal / rsqrt results per SM and clock
 
 
 def law_ops(form: str, rcp: str) -> int:
-    """FP32 operations per pair that the pair law itself needs, besides one
-    MUFU reciprocal or rsqrt, in a form of ``csrc/pair_law.cuh``: "mono",
+    """FP32 operations per pair that the pair law itself needs, besides its
+    MUFU ops (``law_mufu``), in a form of ``csrc/pair_law.cuh``: "mono",
     an ordered pair of K1 or K3; "sym", an unordered pair of K2, applied
-    to both sides; "pot", a term of K6. The sums into the accumulators
-    count; loads, loop control and K2's shuffles do not, being the
-    implementation's. ``exact`` has no count: an IEEE division is no fixed
-    number of operations."""
+    to both sides; "pot", a term of K6; "quad", a pair of K4. The sums into
+    the accumulators count; loads, loop control and K2's shuffles do not,
+    being the implementation's. ``exact`` has no count: an IEEE division is
+    no fixed number of operations."""
     base, _, guard = rcp.partition("+")
+    if form == "quad":
+        # _quad_tile: d 2 sub; |d|_1 1 add; d2 2 mul, add, max; the mask 2
+        # compares and 2 selects; a·b and m·ab 2; the signs 2 compares and
+        # 2 selects; a²b, ab², a³b, a²b², ab³ 5; 2dx, 2dy, 8dx, 8dy 4; g_x
+        # and g_y 3 each; 2a³b, 2ab² 2; g_xx and g_yy 7 each; g_xy 12;
+        # corr_x and corr_y 13 each; d·w + corr 2 each; the sums 2: 92,
+        # plus 3 for each of the two Newton steps. "+clamp" is ignored.
+        return 92 + {"newton": 6, "approx": 0}[base]
     ops = 8  # d: 2 sub; |d|_1: 1 add; d2: 2 mul, add, max; den or m*r: 1 mul
     if form == "pot":
         return ops + 3 + 1  # the mask (2 compares, select) and the sum
     ops += {"newton": 3, "approx": 0}[base]  # the Newton step r*(2 - den*r)
     ops += 1 if guard == "clamp" else 3      # max(s, clamp), or the mask
     return ops + (5 if form == "mono" else 10)  # m*r, d*w, sums; per side
+
+
+def law_mufu(form: str) -> int:
+    """MUFU ops per pair: K4 takes 1/‖d‖₁ and 1/d2 apart, the others one
+    reciprocal (or rsqrt) of a product."""
+    return 2 if form == "quad" else 1
 
 
 def card_query(fields: str) -> str:
@@ -181,7 +209,7 @@ def main() -> int:
     from nbody_simulation_tpu_torch.config import RCP_MODES, SimConfig
     from nbody_simulation_tpu_torch.cuda_build import library_path
     from nbody_simulation_tpu_torch.models import World
-    from nbody_simulation_tpu_torch.models.scenarios import (galaxy,
+    from nbody_simulation_tpu_torch.models.scenarios import (galaxy, plummer,
                                                              uniform_disc)
     from nbody_simulation_tpu_torch.ops import allpairs as ap
     from nbody_simulation_tpu_torch.ops import energy as en
@@ -232,13 +260,13 @@ def main() -> int:
     def bound(form: str, rcp: str, pairs: float, nbytes: float,
               lib: str, function: str):
         """(bound_ms, bound_by, note): the larger of the bytes over the
-        memory rate and the law's pair work (``law_ops`` and one MUFU op
+        memory rate and the law's pair work (``law_ops`` and ``law_mufu``
         per pair) over the FP32 and MUFU rates. The note gives the three
         times and, beside them, the instructions per pair in the hot loop
         of ``function`` as built, which the bound does not use."""
-        ops = law_ops(form, rcp)
+        ops, mufu = law_ops(form, rcp), law_mufu(form)
         t_fp32 = pairs * ops / (sms * FP32_PER_SM_CLK * clk_hz)
-        t_mufu = pairs / (sms * MUFU_PER_SM_CLK * clk_hz)
+        t_mufu = pairs * mufu / (sms * MUFU_PER_SM_CLK * clk_hz)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = max(t_fp32, t_mufu)
         try:
@@ -246,8 +274,8 @@ def main() -> int:
                 *sass_per_pair(library_path(lib), function))
         except (RuntimeError, OSError, subprocess.SubprocessError) as e:
             built = f"not counted: {e}"
-        note = (f"{pairs:.4e} pairs, law {ops} FP32 + 1 MUFU per pair: FP32 "
-                f"{t_fp32 * 1e3:.4f} ms, MUFU {t_mufu * 1e3:.4f} ms, bytes "
+        note = (f"{pairs:.4e} pairs, law {ops} FP32 + {mufu} MUFU per pair: "
+                f"FP32 {t_fp32 * 1e3:.4f} ms, MUFU {t_mufu * 1e3:.4f} ms, bytes "
                 f"{t_bytes * 1e3:.4f} ms; built hot loop {built}")
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes", note)
@@ -277,6 +305,26 @@ def main() -> int:
             out[sl, :, 1] = ay.abs().sum(-1)
         return out
 
+    def quad_abs_sum(tgt, sx, sy, sm, sq):
+        """Σ_j (|dx·w| + |corr|) per target and component, for K4's
+        tolerance: the quadrupole law with Q = 0 is the monopole term, with
+        m = 0 the correction. Groups go in chunks of ~2^25 pairs."""
+        out = torch.empty_like(tgt)
+        chunk = max(1, (1 << 25) // (tgt.shape[1] * sx.shape[1]))
+        for g0 in range(0, tgt.shape[0], chunk):
+            sl = slice(g0, g0 + chunk)
+            dx = sx[sl, None, :] - tgt[sl, :, 0:1]
+            dy = sy[sl, None, :] - tgt[sl, :, 1:2]
+            zero = torch.zeros_like(dx)
+            mono = traversal.quad_tile(dx, dy, sm[sl, None, :], zero, zero,
+                                       zero, SOFTENING2)
+            corr = traversal.quad_tile(dx, dy, zero,
+                                       *(q[sl, None, :] for q in sq),
+                                       SOFTENING2)
+            for k in range(2):
+                out[sl, :, k] = (mono[k].abs() + corr[k].abs()).sum(-1)
+        return out
+
     def abs_terms(dx, dy, mj, e):
         ax, ay = pair_accel(dx, dy, mj, e)
         return ax.abs(), ay.abs()
@@ -296,6 +344,37 @@ def main() -> int:
                                f"version: max |d|/sum|c| {ratio:.3e}")
         return err.max().item()
 
+    def trace_steps(label, world, steps=4):
+        """Trace ``steps`` steps of ``world`` with torch.profiler and log
+        the device time and device operations per step and the sweep
+        kernel's share (the CUPTI trace; untraced rates are taken apart)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        def dev_us(e):
+            return (getattr(e, "self_device_time_total", 0)
+                    or getattr(e, "self_cuda_time_total", 0))
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            world.run(steps)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        total = sum(dev_us(e) for e in events) / steps / 1e3
+        sweep = sum(dev_us(e) for e in events
+                    if "grouped_sweep_kernel" in e.key) / steps / 1e3
+        ops = sum(1 for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if total <= 0 or sweep <= 0:
+            raise RuntimeError(f"{label} trace: device time {total} ms, sweep "
+                               f"kernel {sweep} ms per step: the profiler "
+                               "recorded no device time for the step or the "
+                               "sweep kernel")
+        log(f"{label} trace ({steps} steps): device time {total:.3f} ms per "
+            f"step in {ops / steps:.0f} device operations; sweep kernel "
+            f"{sweep:.3f} ms ({sweep / total:.0%}), the rest (sort, tree, "
+            f"planner, integration) {total - sweep:.3f} ms")
+
     def plain_timed(fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -305,24 +384,31 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
+    def path_inputs(state, c):
+        """The sweep's inputs on a Barnes-Hut World's path at config ``c``
+        (a re-sorting step of ``World._bh_step``): the sorted positions and
+        masses, the tree, and ``traversal.sweep_inputs``."""
+        spos, _, smass = morton_sort_state(
+            state.pos, state.vel, state.mass, c.world_size,
+            bits=c.resolved_morton_bits())
+        tree = summarize_sorted(spos, smass, leaf_size=c.leaf_size,
+                                unweighted_leaf_com=c.unweighted_leaf_com,
+                                quad=c.resolved_multipole() == 2)
+        fcap, lcap = c.resolved_caps()
+        return spos, smass, tree, traversal.sweep_inputs(
+            tree, c.theta, fcap, lcap, arity=c.tree_arity,
+            plan_leaves=c.plan_leaves, multipole=c.resolved_multipole())
+
     # -- 2. K3: sweep kernel vs plain version at the main path's shapes -------
     cfg = SimConfig(force_path="bh")
-    st = galaxy(seed=0).to(dev).pad_to(256)
-    spos, _, smass = morton_sort_state(st.pos, st.vel, st.mass,
-                                       cfg.world_size,
-                                       bits=cfg.resolved_morton_bits())
-    tree = summarize_sorted(spos, smass, leaf_size=cfg.leaf_size)
-    fcap, lcap = cfg.resolved_caps()
-    sx, sy, sm = traversal.bh_plan_sources(tree, cfg.theta, fcap, lcap,
-                                           plan_leaves=cfg.plan_leaves)
-    g, c = sx.shape
-    tgt = tree.leaf_pos.reshape(g, -1, 2)
-    s = tgt.shape[1]
+    *_, (tgt, (sx, sy, sm), _, lim) = path_inputs(
+        galaxy(seed=0).to(dev).pad_to(256), cfg)
+    g, s, _ = tgt.shape
+    c = sx.shape[1]
     log(f"galaxy sweep shape: G={g} S={s} C={c} "
         f"({g * s * c / 1e6:.1f}M pairs)")
     if (g, s, c) != (1024, 256, 1280):
         raise RuntimeError(f"unexpected main-path shape {(g, s, c)}")
-    lim = traversal.last_nonzero_columns(sm)
     log(f"per-group bound: mean last nonzero column "
         f"{lim.float().mean().item():.1f} of {c} "
         f"({lim.sum().item() / (g * c):.3f} of the full sweep's pairs)")
@@ -354,11 +440,118 @@ def main() -> int:
     sweep_bytes = 4.0 * (3 * lim.sum().item() + 4 * g * s) + 4 * g
     sweep_bound = bound("mono", main_rcp, sweep_pairs, sweep_bytes,
                         "grouped_sweep",
-                        f"grouped_sweep_kernelILi{RCP_MODES.index(main_rcp)}E")
+                        f"grouped_sweep_kernelILi{RCP_MODES.index(main_rcp)}"
+                        "ELb0E")
     log(f"sweep time at (1024, 256, 1280): kernel rcp={main_rcp} full "
         f"{ms_full:.4f} ms, bounded {ms_bound:.4f} ms; kernel exact bounded "
         f"{ms_exact:.4f} ms; plain torch {ms_plain:.3f} ms; bound "
         f"{sweep_bound[0]:.4f} ms by {sweep_bound[1]} ({sweep_bound[2]})")
+
+    # -- 2b. K4: quadrupole sweep vs plain version at the θ<2 shapes ----------
+    def hold_quad(label, inputs, modes, quad_rcp, reps=10):
+        """K4 against its plain version on ``inputs`` (``sweep_inputs``'s)
+        in each of ``modes``, bounded == full bitwise. Returns the max |d|
+        per mode, the plain version's time, K4's bounded and full times in
+        ``quad_rcp``, and its bound there."""
+        qtgt, (qx, qy, qm), qq, qlim = inputs
+        qg, qs, _ = qtgt.shape
+        qc = qx.shape[1]
+        log(f"{label}: G={qg} S={qs} C={qc} ({qg * qs * qc / 1e6:.1f}M "
+            f"pairs, {qlim.sum().item() * qs / 1e6:.1f}M within the "
+            f"per-group bounds; {min(256, (qs + 31) // 32 * 32)}-thread "
+            "blocks)")
+        qplain, plain_ms = plain_timed(lambda: traversal.grouped_force_ref(
+            qtgt, qx, qy, qm, SOFTENING2, src_q=qq))
+        qscale = quad_abs_sum(qtgt, qx, qy, qm, qq)
+        errs = {}
+        for rcp in modes:
+            full = traversal.grouped_sweep(qtgt, qx, qy, qm, SOFTENING2, rcp,
+                                           src_q=qq)
+            bounded = traversal.grouped_sweep(qtgt, qx, qy, qm, SOFTENING2,
+                                              rcp, col_limit=qlim, src_q=qq)
+            torch.cuda.synchronize()
+            if not torch.equal(full, bounded):
+                raise RuntimeError(f"{label}, quad {rcp}: bounded sweep "
+                                   "differs from the full sweep (max "
+                                   f"{(full - bounded).abs().max()})")
+            errs[rcp] = hold(f"{label}: grouped_sweep quad rcp={rcp} vs plain"
+                             " (exact), bound relative to sum(|dx w|+|corr|);"
+                             " bounded == full bitwise", full, qplain, qscale)
+        del qplain, qscale, full, bounded
+        ms_full = timed_ms(lambda: traversal.grouped_sweep(
+            qtgt, qx, qy, qm, SOFTENING2, quad_rcp, src_q=qq), reps=reps)
+        ms_bound = timed_ms(lambda: traversal.grouped_sweep(
+            qtgt, qx, qy, qm, SOFTENING2, quad_rcp, col_limit=qlim,
+            src_q=qq), reps=reps)
+        qpairs = float(qlim.sum().item()) * qs
+        qbytes = 4.0 * (6 * qlim.sum().item() + 4 * qg * qs) + 4 * qg
+        bd = bound("quad", quad_rcp, qpairs, qbytes, "grouped_sweep",
+                   f"grouped_sweep_kernelILi{RCP_MODES.index(quad_rcp)}ELb1E")
+        log(f"{label}: kernel rcp={quad_rcp} full {ms_full:.4f} ms, bounded "
+            f"{ms_bound:.4f} ms; plain torch {plain_ms:.3f} ms (once); bound "
+            f"{bd[0]:.4f} ms by {bd[1]} ({bd[2]})")
+        return errs, plain_ms, ms_bound, ms_full, bd
+
+    # The 65,536-body Plummer cluster at θ=0.5 with mass-weighted leaf COMs:
+    # first with one leaf per planning row, the JAX package's force-error
+    # configuration (benchmarks/suite.py config 2; 64-thread blocks), then
+    # at the CLI's own config (plan_leaves=4, 256-thread blocks), then the
+    # θ=0.5 galaxy's columns, the widest.
+    t_phase = time.perf_counter()
+    pst = plummer(N_PLUMMER, seed=0).to(dev).pad_to(256)
+    qcfg = SimConfig(force_path="bh", theta=0.5, plan_leaves=1,
+                     unweighted_leaf_com=False)
+    quad_rcp = qcfg.resolved_rcp(bh=True)
+    qpos, qmass, qtree, qin = path_inputs(pst, qcfg)
+    if qin[0].shape[1] != 64:
+        raise RuntimeError(f"plan_leaves=1 targets per group {qin[0].shape}")
+    hold_quad(f"quadrupole sweep, Plummer N={N_PLUMMER}, theta=0.5, "
+              "plan_leaves=1, weighted leaf COMs", qin, RCP_MODES, quad_rcp)
+
+    # Fidelity: median relative force error against an f64 direct sum, with
+    # and without the quadrupole, at the same caps.
+    qtgt, (qx, qy, qm), qq, qlim = qin
+    q64 = direct_accel(qpos.double(), qmass.double(), SOFTENING2)
+    qf, ql = qcfg.resolved_caps()
+    mx, my, mm = traversal.bh_plan_sources(qtree, qcfg.theta, qf, ql,
+                                           plan_leaves=1, multipole=1)
+    errs = {}
+    for label, acc in (
+            ("quadrupole", traversal.grouped_sweep(
+                qtgt, qx, qy, qm, SOFTENING2, quad_rcp, col_limit=qlim,
+                src_q=qq)),
+            ("monopole", traversal.grouped_sweep(
+                qtgt, mx, my, mm, SOFTENING2, quad_rcp,
+                col_limit=traversal.last_nonzero_columns(mm)))):
+        rel = ((acc.reshape(-1, 2).double() - q64).norm(dim=1)
+               / q64.norm(dim=1).clamp_min(1e-300))
+        errs[label] = rel.median().item()
+    log(f"force error at theta=0.5 (Plummer N={N_PLUMMER}, plan_leaves=1, "
+        f"caps F={qf} L={ql}, rcp={quad_rcp}) vs f64 direct: median "
+        f"relative {errs['quadrupole']:.4e} with the quadrupole, "
+        f"{errs['monopole']:.4e} monopole only (bound 1e-3, and below the "
+        "monopole's)")
+    if not (errs["quadrupole"] < 1e-3
+            and errs["quadrupole"] < errs["monopole"]):
+        raise RuntimeError(f"quadrupole force error {errs}")
+    del qin, qtgt, qx, qy, qm, qq, qlim, q64, mx, my, mm, qtree
+
+    # The CLI's θ=0.5 Plummer run (--weighted-leaf-com, plan_leaves=4):
+    # these are the shape and numbers of the kernel table's K4 entry.
+    pcli = SimConfig(force_path="bh", theta=0.5, unweighted_leaf_com=False)
+    *_, pin = path_inputs(pst, pcli)
+    if pin[0].shape[1] != 256:
+        raise RuntimeError(f"plan_leaves=4 targets per group {pin[0].shape}")
+    quad_err, ms_qplain, ms_qbound, _, quad_bound = hold_quad(
+        f"quadrupole sweep, Plummer N={N_PLUMMER}, theta=0.5, plan_leaves=4 "
+        "(the CLI's), weighted leaf COMs", pin, RCP_MODES, quad_rcp)
+    del pin, pst
+    *_, gin = path_inputs(galaxy(seed=0).to(dev).pad_to(256),
+                          SimConfig(force_path="bh", theta=0.5))
+    hold_quad("quadrupole sweep, galaxy, theta=0.5", gin, (quad_rcp,),
+              quad_rcp, reps=5)
+    del gin
+    log(f"phase quadrupole sweep: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 3. θ=0 Barnes-Hut equals direct summation ----------------------------
     disc = uniform_disc(16_384, seed=3).to(dev)
@@ -373,14 +566,18 @@ def main() -> int:
                             SOFTENING2)
         scale0[i0:i0 + 1024, 0] = ax.abs().sum(1)
         scale0[i0:i0 + 1024, 1] = ay.abs().sum(1)
-    for rcp in ("exact", "newton"):
-        bh0 = traversal.bh_accel(disc.pos, disc.mass, theta=0.0, multipole=1,
-                                 rcp=rcp)
-        ratio = ((bh0.double() - d64).abs() / scale0.clamp_min(1e-300)).max()
-        log(f"theta=0 BH (N=16384, rcp={rcp}) vs f64 direct: max "
-            f"|d|/sum|c| {ratio.item():.3e} (bound {SUM_ORDER_RTOL:g})")
-        if not ratio.item() <= SUM_ORDER_RTOL:
-            raise RuntimeError(f"theta=0 BH ({rcp}) differs from direct sum")
+    for multipole in (1, 2):
+        for rcp in ("exact", "newton"):
+            bh0 = traversal.bh_accel(disc.pos, disc.mass, theta=0.0,
+                                     multipole=multipole, rcp=rcp)
+            ratio = ((bh0.double() - d64).abs()
+                     / scale0.clamp_min(1e-300)).max()
+            log(f"theta=0 BH (N=16384, multipole={multipole}, rcp={rcp}) vs "
+                f"f64 direct: max |d|/sum|c| {ratio.item():.3e} (bound "
+                f"{SUM_ORDER_RTOL:g})")
+            if not ratio.item() <= SUM_ORDER_RTOL:
+                raise RuntimeError(f"theta=0 BH (multipole={multipole}, "
+                                   f"{rcp}) differs from direct sum")
 
     # -- 4. K2 and K1 vs their plain versions on the galaxy -------------------
     pcfg = SimConfig(force_path="pallas")
@@ -514,7 +711,7 @@ def main() -> int:
             w = world.state
             return int((render_frame(w.pos, w.vel, w.mass)[..., 3] > 0).sum())
 
-    def check_world(label, world, steps, tmp):
+    def check_world(label, world, steps, tmp, mass0):
         pos = world.state.pos[:world.state.n_real]
         if not bool(torch.isfinite(pos).all()):
             raise RuntimeError(f"{label}: non-finite positions")
@@ -544,7 +741,7 @@ def main() -> int:
         if launches != STEPS:
             raise RuntimeError(f"sweep kernel launched {launches} times in "
                                f"{STEPS} steps")
-        check_world("BH main path", world, STEPS, tmp)
+        check_world("BH main path", world, STEPS, tmp, mass0)
 
     # Steady-state rate and the Counting split, on the same world.
     world.run(STEPS)  # warm: covers a full resort cycle
@@ -562,6 +759,83 @@ def main() -> int:
         f"{counting.build_bvh / n_timed * 1e3:.3f} ms, sum_gravity "
         f"{counting.sum_gravity / n_timed * 1e3:.3f} ms, post_calculations "
         f"{counting.post_calculations / n_timed * 1e3:.3f} ms")
+    trace_steps("galaxy theta=50", world)
+
+    # -- 7b. the θ=0.5 quality path through the CLI: K4 on every step --------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        traversal.grouped_sweep.launches = 0
+        traversal.grouped_sweep.quad_launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            qworld = run.simulate([
+                "--scenario", "plummer", "--n", str(N_PLUMMER), "--theta",
+                "0.5", "--weighted-leaf-com", "--steps", str(QUAD_STEPS),
+                "--energy-every", str(ENERGY_EVERY), "--device", "cuda",
+                "--out", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        quad_launches = traversal.grouped_sweep.quad_launches
+        k3_in_quad = traversal.grouped_sweep.launches
+        qenergy = [(float(mt.group(1)), float(mt.group(2))) for mt in
+                   re.finditer(r"energy: step \d+ E=(\S+) \|dE/E0\|=(\S+)",
+                               buf.getvalue())]
+        for line in buf.getvalue().splitlines():
+            if line.startswith(("energy:", "done:", "len:")):
+                log(f"  run: {line}")
+        log(f"theta=0.5 Plummer path: {QUAD_STEPS} steps in {wall:.2f} s "
+            f"wall; quadrupole sweep launches {quad_launches}, monopole "
+            f"sweep launches {k3_in_quad}, energy samples {len(qenergy)}")
+        if quad_launches != QUAD_STEPS or k3_in_quad != 0:
+            raise RuntimeError(f"theta=0.5 path: quadrupole sweep launched "
+                               f"{quad_launches} times and the monopole "
+                               f"sweep {k3_in_quad} in {QUAD_STEPS} steps")
+        if not qenergy or not all(math.isfinite(e) and math.isfinite(d)
+                                  for e, d in qenergy):
+            raise RuntimeError(f"theta=0.5 path: energy prints {qenergy}")
+        check_world("theta=0.5 Plummer path", qworld, QUAD_STEPS, tmp,
+                    plummer(N_PLUMMER, seed=0).mass.double().sum().item())
+    qworld.run(8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qworld.run(QUAD_STEPS)
+    torch.cuda.synchronize()
+    quad_ups = QUAD_STEPS / (time.perf_counter() - t0)
+    log(f"theta=0.5 Plummer ups {quad_ups:.1f} (steady state, {QUAD_STEPS} "
+        "steps, plan_leaves=4)")
+    trace_steps("theta=0.5 Plummer", qworld)
+
+    # The galaxy at θ=0.5: the quadrupole sweep at the widest planned shape.
+    gcfg = SimConfig(force_path="bh", theta=0.5)
+    gworld = World(galaxy(seed=0).to(dev), gcfg)
+    traversal.grouped_sweep.launches = 0
+    traversal.grouped_sweep.quad_launches = 0
+    gworld.run(QUAD_GALAXY_STEPS)
+    torch.cuda.synchronize()
+    gq, g3 = (traversal.grouped_sweep.quad_launches,
+              traversal.grouped_sweep.launches)
+    log(f"theta=0.5 galaxy World: {QUAD_GALAXY_STEPS} steps, quadrupole "
+        f"sweep launches {gq}, monopole {g3}")
+    if gq != QUAD_GALAXY_STEPS or g3 != 0:
+        raise RuntimeError("theta=0.5 galaxy World did not run the "
+                           "quadrupole sweep once per step")
+    if not bool(torch.isfinite(gworld.state.pos).all()):
+        raise RuntimeError("theta=0.5 galaxy World: non-finite positions")
+    t0 = time.perf_counter()
+    gworld.run(QUAD_GALAXY_STEPS)
+    torch.cuda.synchronize()
+    gups = QUAD_GALAXY_STEPS / (time.perf_counter() - t0)
+    gcounting = Counting()
+    for _ in range(4):
+        gworld.step_timed(gcounting)
+    log(f"theta=0.5 galaxy ups {gups:.1f} ({QUAD_GALAXY_STEPS} steps); per "
+        f"profiled step: build_bvh {gcounting.build_bvh / 4 * 1e3:.3f} ms, "
+        f"sum_gravity {gcounting.sum_gravity / 4 * 1e3:.3f} ms, "
+        f"post_calculations {gcounting.post_calculations / 4 * 1e3:.3f} ms")
+    trace_steps("theta=0.5 galaxy", gworld)
+    del qworld, gworld
+    log(f"phase theta=0.5 paths: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 8. the all-pairs main path with energy telemetry ---------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -601,7 +875,7 @@ def main() -> int:
         if not all(math.isfinite(e) and math.isfinite(d)
                    for _, e, d in energy):
             raise RuntimeError(f"non-finite energy or drift: {energy}")
-        check_world("all-pairs main path", pworld, PALLAS_STEPS, tmp)
+        check_world("all-pairs main path", pworld, PALLAS_STEPS, tmp, mass0)
     pworld.run(2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -686,6 +960,9 @@ def main() -> int:
         entry("grouped_sweep", "grouped_sweep.cu",
               "nbody_simulation_tpu/ops/traversal.py:210", launches,
               max_abs_err[main_rcp], ms_bound, ms_plain, sweep_bound),
+        entry("grouped_sweep_quad", "grouped_sweep.cu",
+              "nbody_simulation_tpu/ops/traversal.py:149", quad_launches,
+              quad_err[quad_rcp], ms_qbound, ms_qplain, quad_bound),
         entry("allpairs_sym", "allpairs.cu",
               "nbody_simulation_tpu/ops/allpairs.py:290", sym_launches,
               sym_err[main_ap], ms_sym, ms_sym_plain, sym_bound),

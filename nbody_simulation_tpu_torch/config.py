@@ -6,9 +6,9 @@ them equal field by field); that module documents why each default was
 chosen. The defaults are the reference's compile-time consts (reference
 src/main.rs:31-35, src/bvh_tree.rs:37).
 
-Some fields configure paths this package has not ported yet (the quadrupole,
-distributed BH); they are kept so a config round-trips between the two
-packages unchanged.
+Some fields configure paths this package has not ported yet (distributed
+BH); they are kept so a config round-trips between the two packages
+unchanged.
 """
 
 from __future__ import annotations
@@ -104,8 +104,8 @@ class SimConfig:
             return self.morton_bits
         return 15 if self.theta >= 2.0 else 24
 
-    # Multipole order of accepted-node forces: 1 = COM monopole, 2 = plus
-    # the quadrupole correction (not ported yet).
+    # Multipole order of accepted-node forces: 1 = COM monopole (sweep
+    # kernel K3), 2 = plus the quadrupole correction (sweep kernel K4).
     multipole: int | None = None
 
     def resolved_multipole(self) -> int:

@@ -5,6 +5,8 @@
 // skipped when |d|_1 is not a normal float. Three forms are used:
 //   mono_pair  the ordered law of mono_tile (nbody_simulation_tpu/ops/
 //              allpairs.py:52-100): K1 and the Barnes-Hut sweep (K3/K5);
+//   quad_pair  monopole plus quadrupole correction of _quad_tile
+//              (nbody_simulation_tpu/ops/traversal.py:149-207): K4;
 //   sym_r      the shared pair kernel k(d) of _sym_r (allpairs.py:103-137):
 //              K2 applies m_j*d*k to i and -m_i*d*k to j;
 //   pot_term   the counterpart potential of pot_tile (nbody_simulation_tpu/
@@ -87,6 +89,92 @@ __device__ __forceinline__ void mono_pair(float dx, float dy, float m,
     cx = __fmul_rn(dx, w);
     cy = __fmul_rn(dy, w);
   }
+}
+
+// Monopole + quadrupole law: the contribution (cx, cy) of a source node
+// with mass m and second moments (qxx, qxy, qyy) about its COM, displaced
+// by (dx, dy): d*m*g(d) + 1/2 Q : grad grad f(d), with g = 1/(|d|_1 |d|_2^2)
+// and f = d*g, in _quad_tile's operation order. It takes two reciprocals,
+// a = 1/s and b = 1/d2: IEEE divisions in `exact`; elsewhere rcp.approx of
+// each (2 MUFU), with one Newton step each in the newton modes. The "+clamp"
+// suffix is ignored (the correction carries no dx or dy factor, so a clamp
+// would turn a coincident COM into a huge finite force): the clamp modes run
+// as their base mode, with the is_normal mask. The correction is computed
+// for every pair, Q = 0 included, so that where a^3 b overflows 0 * inf
+// gives NaN as the JAX kernel does; it does not scale with m.
+template <int MODE>
+__device__ __forceinline__ void quad_pair(float dx, float dy, float m,
+                                          float qxx, float qxy, float qyy,
+                                          float soft2, float& cx, float& cy) {
+  const float adx = fabsf(dx);
+  const float ady = fabsf(dy);
+  const float s = __fadd_rn(adx, ady);
+  const bool normal = is_normal(s);
+  const float d2 =
+      max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
+  float a, b;
+  if (MODE == kExact) {
+    a = __fdiv_rn(1.0f, s);
+    b = __fdiv_rn(1.0f, d2);
+  } else {
+    a = rcp_approx(s);
+    b = rcp_approx(d2);
+    if (MODE == kNewton || MODE == kNewtonClamp) {
+      a = __fmul_rn(a, __fsub_rn(2.0f, __fmul_rn(s, a)));
+      b = __fmul_rn(b, __fsub_rn(2.0f, __fmul_rn(d2, b)));
+    }
+  }
+  const float ab = __fmul_rn(a, b);
+  const float w = __fmul_rn(m, ab);
+  const float sx = dx >= 0.0f ? 1.0f : -1.0f;
+  const float sy = dy >= 0.0f ? 1.0f : -1.0f;
+  const float a2b = __fmul_rn(a, ab);
+  const float ab2 = __fmul_rn(b, ab);
+  const float a3b = __fmul_rn(a, a2b);
+  const float a2b2 = __fmul_rn(b, a2b);
+  const float ab3 = __fmul_rn(b, ab2);
+  const float dx2 = __fmul_rn(2.0f, dx);
+  const float dy2 = __fmul_rn(2.0f, dy);
+  const float dx8 = __fmul_rn(8.0f, dx);
+  const float dy8 = __fmul_rn(8.0f, dy);
+  // g_x, g_y and g_xx, g_yy, g_xy of g(d).
+  const float gx = -__fadd_rn(__fmul_rn(sx, a2b), __fmul_rn(dx2, ab2));
+  const float gy = -__fadd_rn(__fmul_rn(sy, a2b), __fmul_rn(dy2, ab2));
+  const float t1 = __fmul_rn(2.0f, a3b);
+  const float t2 = __fmul_rn(2.0f, ab2);
+  const float gxx = __fadd_rn(
+      __fsub_rn(__fadd_rn(t1, __fmul_rn(__fmul_rn(4.0f, adx), a2b2)), t2),
+      __fmul_rn(__fmul_rn(dx8, dx), ab3));
+  const float gyy = __fadd_rn(
+      __fsub_rn(__fadd_rn(t1, __fmul_rn(__fmul_rn(4.0f, ady), a2b2)), t2),
+      __fmul_rn(__fmul_rn(dy8, dy), ab3));
+  const float gxy = __fadd_rn(
+      __fadd_rn(
+          __fmul_rn(__fmul_rn(__fmul_rn(2.0f, sx), sy), a3b),
+          __fmul_rn(__fmul_rn(2.0f, __fadd_rn(__fmul_rn(sx, dy),
+                                              __fmul_rn(sy, dx))),
+                    a2b2)),
+      __fmul_rn(__fmul_rn(dx8, dy), ab3));
+  const float corr_x = __fmul_rn(
+      0.5f,
+      __fadd_rn(
+          __fadd_rn(
+              __fmul_rn(__fadd_rn(__fmul_rn(2.0f, gx), __fmul_rn(dx, gxx)),
+                        qxx),
+              __fmul_rn(__fmul_rn(2.0f, __fadd_rn(gy, __fmul_rn(dx, gxy))),
+                        qxy)),
+          __fmul_rn(__fmul_rn(dx, gyy), qyy)));
+  const float corr_y = __fmul_rn(
+      0.5f,
+      __fadd_rn(
+          __fadd_rn(
+              __fmul_rn(__fmul_rn(dy, gxx), qxx),
+              __fmul_rn(__fmul_rn(2.0f, __fadd_rn(gx, __fmul_rn(dy, gxy))),
+                        qxy)),
+          __fmul_rn(__fadd_rn(__fmul_rn(2.0f, gy), __fmul_rn(dy, gyy)),
+                    qyy)));
+  cx = normal ? __fadd_rn(__fmul_rn(dx, w), corr_x) : 0.0f;
+  cy = normal ? __fadd_rn(__fmul_rn(dy, w), corr_y) : 0.0f;
 }
 
 // Symmetric pair kernel k(d) = 1/(|d|_1 * max(|d|_2^2, eps)), 0 where the

@@ -15,6 +15,8 @@ symmetric tile and the ordered kernel K1 otherwise.
 The Barnes-Hut path keeps the particle arrays in Morton order like the
 reference's in-place partition (src/bvh_tree.rs:74-76): a re-sort every
 ``resort_every`` steps, tree summaries, planner and sweep on every step.
+Below θ=2 the summaries carry second moments and the sweep is the
+quadrupole kernel K4 (``SimConfig.resolved_multipole``).
 """
 
 from __future__ import annotations
@@ -110,7 +112,8 @@ class World:
     def _summaries(self, spos: torch.Tensor, smass: torch.Tensor):
         cfg = self.config
         return summarize_sorted(spos, smass, leaf_size=cfg.leaf_size,
-                                unweighted_leaf_com=cfg.unweighted_leaf_com)
+                                unweighted_leaf_com=cfg.unweighted_leaf_com,
+                                quad=cfg.resolved_multipole() == 2)
 
     def _sweep(self, tree, n: int) -> torch.Tensor:
         """Planner + sweep: accelerations of the first ``n`` Morton-ordered

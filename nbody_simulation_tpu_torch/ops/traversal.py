@@ -1,8 +1,9 @@
 """Barnes-Hut traversal: a level-synchronous planner plus one force sweep.
 
-The port of ``nbody_simulation_tpu/ops/traversal.py`` for the monopole
-path. The reference walks the tree recursively per particle (reference
-src/main.rs:348-386); here, as in the JAX package, the walk is split:
+The port of ``nbody_simulation_tpu/ops/traversal.py``: the monopole path
+(θ≥2) and the quadrupole path (``multipole=2``, every θ<2). The reference
+walks the tree recursively per particle (reference src/main.rs:348-386);
+here, as in the JAX package, the walk is split:
 
 1. **Planning (plain torch).** Each planning row (``plan_leaves`` adjacent
    leaves) walks the tree one level at a time with a fixed-capacity
@@ -12,14 +13,18 @@ src/main.rs:348-386); here, as in the JAX package, the walk is split:
    candidates become source columns (COM, mass if accepted else 0); nodes
    that reach the leaf level land in a leaf list whose particles are
    gathered in. Overflow of a capacity accepts the node's COM instead of
-   dropping it. The JAX package's ``lax.scan`` over width-padded level
+   dropping it. With ``multipole=2`` a node is accepted only when it is
+   also strictly separated from the AABB in both axes, or passes θ/2;
+   accepted nodes that are separated carry their second moments in three
+   more columns. The JAX package's ``lax.scan`` over width-padded level
    buckets (a TPU gather tuning) is one Python loop over levels here; the
    child-interleaved candidate order, which fixes the source-column order,
    is the same.
 2. **Force sweep (CUDA).** For group g, its S targets against its C
    planned sources: ``grouped_force``, which launches the hand-written
-   kernel ``csrc/grouped_sweep.cu`` on CUDA tensors and runs the plain
-   version ``grouped_force_ref`` on CPU tensors.
+   kernel ``csrc/grouped_sweep.cu`` on CUDA tensors (K3, or K4 with the
+   quadrupole columns) and runs the plain version ``grouped_force_ref`` on
+   CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,13 +36,9 @@ import numpy as np
 import torch
 
 from nbody_simulation_tpu_torch.config import check_rcp
-from nbody_simulation_tpu_torch.ops.force import pair_accel
+from nbody_simulation_tpu_torch.ops.force import (FLT_MAX, FLT_MIN_NORMAL,
+                                                  pair_accel)
 from nbody_simulation_tpu_torch.ops.tree import BIG, FlatTree, build_tree
-
-_K4_MSG = ("multipole=2 needs the quadrupole sweep (kernel K4, "
-           "_sweep_kernel with _quad_tile), which is not ported yet: "
-           "ROADMAP.md, 'TPU kernels, ported and to port', K4")
-
 
 def _group_node_d2(gmin, gmax, nmin, nmax, ncom):
     """Min squared distance from the group AABB to the node COM; plus the
@@ -108,7 +109,8 @@ def bh_plan_sources(tree: FlatTree, theta: float, frontier_cap: int,
                     leaf_cap: int, arity: int = 2, plan_leaves: int = 1,
                     multipole: int = 1):
     """Planning pass → per-group source columns (src_x, src_y, src_m), each
-    (G, C). Zero-mass entries contribute zero force. The walk starts at level
+    (G, C), plus (src_qxx, src_qxy, src_qyy) with ``multipole=2``. Zero-mass
+    entries contribute zero monopole force. The walk starts at level
     log2(F) with all its nodes in the frontier; ``arity=4`` walks two binary
     levels per iteration."""
     if arity not in (2, 4):
@@ -129,12 +131,15 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
               leaf_cap: int, arity: int = 2, multipole: int = 1):
     """The planner over explicit own-AABB rows (one per planning row).
 
-    Returns ``(src_x, src_y, src_m)`` of (G, C). Only the unbounded walk is
-    ported; the bounded walk, seeded frontiers and ``multipole=2`` serve the
-    distributed and quadrupole paths, which are not.
+    Returns ``(src_x, src_y, src_m)`` of (G, C), plus ``(src_qxx, src_qxy,
+    src_qyy)`` with ``multipole=2`` (Q only where a node was accepted and is
+    separated in both axes; overflow fallbacks and leaf particles carry 0).
+    Only the unbounded walk is ported; the bounded walk and seeded frontiers
+    serve the distributed paths, which are not.
     """
-    if multipole != 1:
-        raise NotImplementedError(_K4_MSG)
+    if multipole not in (1, 2):
+        raise ValueError(f"multipole must be 1 or 2, got {multipole}")
+    quad = multipole == 2
     depth = tree.depth
     F = frontier_cap
     dev = own.aabb_min.device
@@ -142,6 +147,9 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
     gmin = own.aabb_min[:, None, :]     # (G,1,2) group AABB
     gmax = own.aabb_max[:, None, :]
     theta2 = float(np.float32(theta * theta))
+    # θ²/4 as the JAX package writes it, jnp.float32(theta * theta * 0.25)
+    # (equal to theta2 / 4: scaling by 4 commutes with the rounding).
+    tight2 = float(np.float32(theta * theta * 0.25))
     k0 = min(max(F.bit_length() - 1, 0), depth - 1) if depth > 0 else 0
 
     def level_body(packed_child, frontier, valid, fan, cap):
@@ -162,6 +170,17 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
         nonempty = rec[..., 7] > 0
         disjoint, s2, d2 = _group_node_d2(gmin, gmax, nmin, nmax, ncom)
         accept = cvalid & disjoint & (s2 < d2 * theta2)
+        both_sep = None
+        if quad:
+            # The law's |d|_1 kinks at dx=0 and dy=0: the expansion holds
+            # only for a node strictly separated from the group in both
+            # axes. Others must pass θ/2 and stay monopole.
+            both_sep = (((gmax[..., 0] <= nmin[..., 0])
+                         | (gmin[..., 0] >= nmax[..., 0]))
+                        & ((gmax[..., 1] <= nmin[..., 1])
+                           | (gmin[..., 1] >= nmax[..., 1])))
+            tight = cvalid & disjoint & (s2 < d2 * tight2)
+            accept = (accept & both_sep) | tight
         opened = cvalid & ~accept & nonempty
         # Closest-first: overflow falls back to COM on the farthest nodes.
         if cand.shape[1] <= _RANK_COMPACT_MAX_K:
@@ -176,14 +195,21 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
                 opened = torch.take_along_dim(opened, perm, dim=1)
                 accept = torch.take_along_dim(accept, perm, dim=1)
                 rec = torch.take_along_dim(rec, perm[..., None], dim=1)
+                if quad:
+                    both_sep = torch.take_along_dim(both_sep, perm, dim=1)
             new_list, new_valid, overflow = _compact(opened, cand, cap)
         use_com = accept | overflow  # overflow → COM, never dropped
-        cols = (rec[..., 4], rec[..., 5],
-                torch.where(use_com, rec[..., 6],
-                            torch.zeros((), device=dev)))
+        zero = torch.zeros((), device=dev)
+        cols = (rec[..., 4], rec[..., 5], torch.where(use_com, rec[..., 6],
+                                                      zero))
+        if quad:
+            # Overflow fallbacks are close nodes: monopole only.
+            use_q = accept & both_sep
+            cols += tuple(torch.where(use_q, rec[..., 8 + k], zero)
+                          for k in range(3))
         return new_list, new_valid, cols
 
-    src_x, src_y, src_m = [], [], []
+    src_cols = [[] for _ in range(6 if quad else 3)]
     width = 1 << k0
     frontier = torch.zeros((g_rows, max(F, width)), dtype=torch.int32,
                            device=dev)
@@ -197,28 +223,30 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
     while lvl < depth:
         step = 2 if (arity == 4 and lvl + 2 <= depth) else 1
         last = lvl + step >= depth
+        level = tree.levels[lvl + step]
         out_list, out_valid, cols = level_body(
-            tree.levels[lvl + step].packed, frontier, valid, 1 << step,
-            leaf_cap if last else F)
+            level.packed_quad if quad else level.packed, frontier, valid,
+            1 << step, leaf_cap if last else F)
         if last:
             leaf_ids, leaf_valid = out_list, out_valid
         else:
             frontier, valid = out_list, out_valid
-        src_x.append(cols[0])
-        src_y.append(cols[1])
-        src_m.append(cols[2])
+        for k, col in enumerate(cols):
+            src_cols[k].append(col)
         lvl += step
 
-    # Leaf tiles: gather (G, L, S) particle data; invalid slots massless.
+    # Leaf tiles: gather (G, L, S) particle data; invalid slots massless,
+    # particles without second moments.
     leaf_ids = leaf_ids.to(torch.int64)
     lp = tree.leaf_pos[leaf_ids]                        # (G, L, S, 2)
     lm = tree.leaf_mass[leaf_ids] * leaf_valid[..., None]
     n_src = leaf_ids.shape[1] * tree.leaf_pos.shape[1]
-    src_x.append(lp[..., 0].reshape(g_rows, n_src))
-    src_y.append(lp[..., 1].reshape(g_rows, n_src))
-    src_m.append(lm.reshape(g_rows, n_src))
-    return (torch.cat(src_x, dim=1), torch.cat(src_y, dim=1),
-            torch.cat(src_m, dim=1))
+    src_cols[0].append(lp[..., 0].reshape(g_rows, n_src))
+    src_cols[1].append(lp[..., 1].reshape(g_rows, n_src))
+    src_cols[2].append(lm.reshape(g_rows, n_src))
+    for k in range(3, len(src_cols)):
+        src_cols[k].append(torch.zeros((g_rows, n_src), device=dev))
+    return tuple(torch.cat(c, dim=1) for c in src_cols)
 
 
 # -- the force sweep ----------------------------------------------------------
@@ -226,19 +254,64 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
 _REF_CHUNK_ELEMS = 1 << 25
 
 
+def quad_tile(dx, dy, mj, qxx, qxy, qyy, softening2: float = 1e-3):
+    """Monopole + quadrupole contributions (cx, cy) of sources with second
+    moments Q = Σ m·δδᵀ about their COM: the JAX package's ``_quad_tile`` in
+    ``exact``, operation for operation (``csrc/pair_law.cuh`` quad_pair is
+    the kernel's form). The correction is ½·Q : ∇∇f at the COM displacement,
+    f(d) = d/(‖d‖₁·‖d‖₂²). It does not scale with ``mj``, and it is
+    computed for every pair, Q = 0 included: where a³b overflows, 0·inf
+    makes the pair NaN, as in the JAX kernel. Masked pairs (‖d‖₁ not a
+    normal float) give 0; there is no "+clamp" form."""
+    adx = dx.abs()
+    ady = dy.abs()
+    s = adx + ady
+    normal = (s >= FLT_MIN_NORMAL) & (s <= FLT_MAX)
+    d2 = torch.clamp_min(dx * dx + dy * dy, softening2)
+    a = torch.reciprocal(s)
+    b = torch.reciprocal(d2)
+    w = mj * (a * b)
+    one = torch.ones((), dtype=dx.dtype, device=dx.device)
+    sx = torch.where(dx >= 0, one, -one)
+    sy = torch.where(dy >= 0, one, -one)
+    ab = a * b
+    a2b = a * ab
+    ab2 = b * ab
+    a3b = a * a2b
+    a2b2 = b * a2b
+    ab3 = b * ab2
+    gx = -(sx * a2b + 2.0 * dx * ab2)
+    gy = -(sy * a2b + 2.0 * dy * ab2)
+    t1 = 2.0 * a3b
+    t2 = 2.0 * ab2
+    gxx = t1 + 4.0 * adx * a2b2 - t2 + 8.0 * dx * dx * ab3
+    gyy = t1 + 4.0 * ady * a2b2 - t2 + 8.0 * dy * dy * ab3
+    gxy = (2.0 * sx * sy * a3b + 2.0 * (sx * dy + sy * dx) * a2b2
+           + 8.0 * dx * dy * ab3)
+    corr_x = 0.5 * ((2.0 * gx + dx * gxx) * qxx
+                    + 2.0 * (gy + dx * gxy) * qxy + (dx * gyy) * qyy)
+    corr_y = 0.5 * ((dy * gxx) * qxx + 2.0 * (gx + dy * gxy) * qxy
+                    + (2.0 * gy + dy * gyy) * qyy)
+    zero = torch.zeros((), dtype=dx.dtype, device=dx.device)
+    return (torch.where(normal, dx * w + corr_x, zero),
+            torch.where(normal, dy * w + corr_y, zero))
+
+
 def grouped_force_ref(tgt: torch.Tensor, src_x: torch.Tensor,
                       src_y: torch.Tensor, src_m: torch.Tensor,
                       softening2: float = 1e-3, rcp: str = "exact",
-                      col_limit: torch.Tensor | None = None) -> torch.Tensor:
+                      col_limit: torch.Tensor | None = None,
+                      src_q=None) -> torch.Tensor:
     """The sweep's plain version: targets (G, S, 2) against per-group
     sources (G, C) → accel (G, S, 2), summing columns ``c < col_limit[g]``
-    (all C when None).
+    (all C when None). ``src_q`` = (qxx, qxy, qyy) of (G, C) switches the
+    law to the quadrupole form ``quad_tile`` (K4's).
 
-    Always computes ``exact`` — the law of ``ops/force.pair_accel`` — as
-    the JAX package's interpret path does; ``rcp`` is validated only.
-    Groups are taken in chunks so the (g, S, C) temporaries stay near
-    ``_REF_CHUNK_ELEMS`` elements (the whole galaxy sweep would be 1.3 GB
-    each).
+    Always computes ``exact`` — the law of ``ops/force.pair_accel``, or
+    ``quad_tile`` — as the JAX package's interpret path does; ``rcp`` is
+    validated only. Groups are taken in chunks so the (g, S, C) temporaries
+    stay near ``_REF_CHUNK_ELEMS`` elements (the whole galaxy sweep would be
+    1.3 GB each).
     """
     check_rcp(rcp)
     g, s, _ = tgt.shape
@@ -250,7 +323,11 @@ def grouped_force_ref(tgt: torch.Tensor, src_x: torch.Tensor,
         sl = slice(g0, g0 + gc)
         dx = src_x[sl, None, :] - tgt[sl, :, 0:1]      # (gc, S, C)
         dy = src_y[sl, None, :] - tgt[sl, :, 1:2]
-        ax, ay = pair_accel(dx, dy, src_m[sl, None, :], softening2)
+        if src_q is None:
+            ax, ay = pair_accel(dx, dy, src_m[sl, None, :], softening2)
+        else:
+            ax, ay = quad_tile(dx, dy, src_m[sl, None, :],
+                               *(q[sl, None, :] for q in src_q), softening2)
         if col_limit is not None:
             keep = (cols[None, :] < col_limit[sl, None])[:, None, :]
             zero = torch.zeros((), dtype=ax.dtype, device=ax.device)
@@ -271,7 +348,7 @@ def _load_sweep_lib():
         lib = load_cuda_library("grouped_sweep")
         lib.grouped_sweep_launch.restype = ctypes.c_int
         lib.grouped_sweep_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         _sweep_lib = lib
     return _sweep_lib
@@ -280,13 +357,17 @@ def _load_sweep_lib():
 def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
                   src_m: torch.Tensor, softening2: float = 1e-3,
                   rcp: str = "approx",
-                  col_limit: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the CUDA sweep kernel (``csrc/grouped_sweep.cu``).
+                  col_limit: torch.Tensor | None = None,
+                  src_q=None) -> torch.Tensor:
+    """Launch the CUDA sweep kernel (``csrc/grouped_sweep.cu``): K3, or K4
+    when ``src_q`` = (qxx, qxy, qyy) is given (its law ignores a "+clamp"
+    suffix, as the JAX package's does).
 
-    CUDA tensors only: tgt f32 (G, S, 2), src_x/src_y/src_m f32 (G, C),
-    col_limit int32 (G,) or None, all contiguous on one device. Anything else
-    raises; there is no fallback. ``grouped_sweep.launches`` counts the
-    launches.
+    CUDA tensors only: tgt f32 (G, S, 2), src_x/src_y/src_m (and src_q) f32
+    (G, C), col_limit int32 (G,) or None, all contiguous on one device.
+    Anything else raises; there is no fallback. ``grouped_sweep.launches``
+    counts the monopole launches, ``grouped_sweep.quad_launches`` the
+    quadrupole ones.
     """
     mode = check_rcp(rcp)
     if tgt.device.type != "cuda":
@@ -294,7 +375,9 @@ def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
     if tgt.ndim != 3 or tgt.shape[2] != 2:
         raise ValueError(f"tgt must be (G, S, 2), got {tuple(tgt.shape)}")
     g, s, _ = tgt.shape
-    srcs = (src_x, src_y, src_m)
+    if src_q is not None and len(src_q) != 3:
+        raise ValueError(f"src_q must be (qxx, qxy, qyy), got {len(src_q)}")
+    srcs = (src_x, src_y, src_m) + tuple(src_q or ())
     c = src_x.shape[1] if src_x.ndim == 2 else -1
     tensors = (tgt,) + srcs
     for t in srcs:
@@ -319,26 +402,35 @@ def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
         raise ValueError(f"shape too large for int32 indexing: {g, s, c}")
     lib = _load_sweep_lib()
     out = torch.empty_like(tgt)
+    qptr = [None] * 3 if src_q is None else [q.data_ptr() for q in src_q]
     err = lib.grouped_sweep_launch(
         tgt.data_ptr(), src_x.data_ptr(), src_y.data_ptr(), src_m.data_ptr(),
-        None if col_limit is None else col_limit.data_ptr(), out.data_ptr(),
-        g, s, c, float(softening2), mode, tgt.device.index or 0,
+        *qptr, None if col_limit is None else col_limit.data_ptr(),
+        out.data_ptr(), g, s, c, float(softening2), mode,
+        tgt.device.index or 0,
         torch.cuda.current_stream(tgt.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped_sweep kernel launch failed: CUDA error "
-                           f"{err} at G={g}, S={s}, C={c}, rcp={rcp}")
-    grouped_sweep.launches += 1
+                           f"{err} at G={g}, S={s}, C={c}, rcp={rcp}, "
+                           f"quad={src_q is not None}")
+    if src_q is None:
+        grouped_sweep.launches += 1
+    else:
+        grouped_sweep.quad_launches += 1
     return out
 
 
 grouped_sweep.launches = 0
+grouped_sweep.quad_launches = 0
 
 
 def grouped_force(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
                   src_m: torch.Tensor, softening2: float = 1e-3,
                   rcp: str = "approx",
-                  col_limit: torch.Tensor | None = None) -> torch.Tensor:
-    """Targets (G, S, 2) vs per-group sources (G, C) → accel (G, S, 2).
+                  col_limit: torch.Tensor | None = None,
+                  src_q=None) -> torch.Tensor:
+    """Targets (G, S, 2) vs per-group sources (G, C) → accel (G, S, 2),
+    with the quadrupole correction when ``src_q`` is given.
 
     CUDA tensors launch the kernel (``grouped_sweep``); CPU tensors run the
     plain version (``grouped_force_ref``, always ``exact``).
@@ -346,23 +438,48 @@ def grouped_force(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
     check_rcp(rcp)
     if tgt.device.type == "cuda":
         return grouped_sweep(tgt, src_x, src_y, src_m, softening2, rcp,
-                             col_limit)
+                             col_limit, src_q)
     if tgt.device.type == "cpu":
         return grouped_force_ref(tgt, src_x, src_y, src_m, softening2, rcp,
-                                 col_limit)
+                                 col_limit, src_q)
     raise ValueError(f"no sweep for device {tgt.device}")
 
 
-def last_nonzero_columns(src_m: torch.Tensor) -> torch.Tensor:
-    """int32 (G,): one past each group's last nonzero-mass column (0 when
-    the group has none)."""
+def last_nonzero_columns(src_m: torch.Tensor, src_q=None) -> torch.Tensor:
+    """int32 (G,): one past each group's last column with a nonzero mass,
+    or a nonzero second moment when ``src_q`` is given (0 when the group has
+    none). A quadrupole column with m = 0 still acts through Q: a node of
+    fractional masses sums to an int32 mass of 0 but not to Q = 0."""
     g, c = src_m.shape
     if c == 0:
         return torch.zeros(g, dtype=torch.int32, device=src_m.device)
+    live = src_m != 0
+    for q in src_q or ():
+        live = live | (q != 0)
     cols1 = torch.arange(1, c + 1, dtype=torch.int32, device=src_m.device)
-    return torch.where(src_m != 0, cols1,
+    return torch.where(live, cols1,
                        torch.zeros((), dtype=torch.int32,
                                    device=src_m.device)).amax(dim=1)
+
+
+def sweep_inputs(tree: FlatTree, theta: float, frontier_cap: int,
+                 leaf_cap: int, arity: int = 2, plan_leaves: int = 1,
+                 multipole: int = 1):
+    """What ``bh_accel_sorted`` sweeps: ``(tgt, (src_x, src_y, src_m),
+    src_q, col_limit)`` with targets (G, S, 2), source columns (G, C), the
+    second moments (qxx, qxy, qyy) or None, and the per-group column
+    bound."""
+    n_leaves, S, _ = tree.leaf_pos.shape
+    pl_ = max(1, min(plan_leaves, n_leaves))
+    while n_leaves % pl_:
+        pl_ //= 2
+    planned = bh_plan_sources(tree, theta, frontier_cap, leaf_cap,
+                              arity=arity, plan_leaves=pl_,
+                              multipole=multipole)
+    src_q = planned[3:] or None
+    tgt = tree.leaf_pos.reshape(n_leaves // pl_, pl_ * S, 2)
+    return (tgt, planned[:3], src_q,
+            last_nonzero_columns(planned[2], src_q))
 
 
 def bh_accel_sorted(tree: FlatTree, theta: float = 50.0,
@@ -373,25 +490,21 @@ def bh_accel_sorted(tree: FlatTree, theta: float = 50.0,
     f32[n_leaves*leaf_size, 2] in sorted order. ``rcp=None`` resolves from θ
     like ``SimConfig.resolved_rcp``.
 
-    Each group is swept only up to its last nonzero-mass column, which is
-    what the JAX package's occupancy-bucketed sweep buys with static-width
-    calls: a GPU block loops to its own group's bound. The columns past it
-    have zero mass and add exactly ±0, so the result is bitwise the full
-    sweep's (tests/test_torch_traversal.py, chip_smoke.py)."""
+    Each group is swept only up to its last column with a nonzero mass (or
+    second moment), which is what the JAX package's occupancy-bucketed
+    sweep buys with static-width calls: a GPU block loops to its own
+    group's bound. The columns past it have m = 0 and Q = 0 and add exactly
+    ±0 wherever the law is finite, so the result is bitwise the full
+    sweep's (tests/test_torch_traversal.py, tests/test_torch_quad.py,
+    chip_smoke.py). ``multipole=2`` needs a tree built with ``quad``."""
     if rcp is None:
         rcp = "approx" if theta >= 2.0 else "newton"
-    n_leaves, S, _ = tree.leaf_pos.shape
-    pl_ = max(1, min(plan_leaves, n_leaves))
-    while n_leaves % pl_:
-        pl_ //= 2
-    src_x, src_y, src_m = bh_plan_sources(tree, theta, frontier_cap,
-                                          leaf_cap, arity=arity,
-                                          plan_leaves=pl_,
-                                          multipole=multipole)
-    tgt = tree.leaf_pos.reshape(n_leaves // pl_, pl_ * S, 2)
+    tgt, (src_x, src_y, src_m), src_q, col_limit = sweep_inputs(
+        tree, theta, frontier_cap, leaf_cap, arity=arity,
+        plan_leaves=plan_leaves, multipole=multipole)
     acc = grouped_force(tgt, src_x, src_y, src_m, softening2, rcp,
-                        col_limit=last_nonzero_columns(src_m))
-    return acc.reshape(n_leaves * S, 2)
+                        col_limit=col_limit, src_q=src_q)
+    return acc.reshape(-1, 2)
 
 
 def bh_accel(pos: torch.Tensor, mass: torch.Tensor, *, theta: float = 50.0,
@@ -417,7 +530,7 @@ def bh_accel(pos: torch.Tensor, mass: torch.Tensor, *, theta: float = 50.0,
     tree, order = build_tree(pos, mass, leaf_size=leaf_size,
                              world_size=world_size,
                              unweighted_leaf_com=unweighted_leaf_com,
-                             morton_bits=morton_bits)
+                             morton_bits=morton_bits, quad=multipole == 2)
     acc_sorted = bh_accel_sorted(tree, theta=theta, softening2=softening2,
                                  frontier_cap=frontier_cap, leaf_cap=leaf_cap,
                                  arity=arity, plan_leaves=plan_leaves,

@@ -10,8 +10,13 @@ Kept exactly: masses are cast f32→int32 and summed in int32 (the reference's
 u32 ``total_mass``), a leaf's COM is the unweighted mean of its positions
 (the reference quirk, src/bvh_tree.rs:98-116) unless turned off, internal
 COMs divide by ``max(mass, 1)``, and empty nodes sit at ``EMPTY_POS`` with
-zero size and zero mass. Quadrupole moments are not computed: the
-``multipole=2`` sweep is not ported yet.
+zero size and zero mass.
+
+With ``quad=True`` every level also carries its second moments about the
+stored COM, which the ``multipole=2`` planner emits for the quadrupole
+sweep. The JAX package always computes them and lets ``jit`` drop them
+where they go unused; torch runs eagerly, so the monopole paths skip them
+(their ~10 extra launches per level) and ``Level.quad`` is then None.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ class Level(NamedTuple):
     com: torch.Tensor        # (2^l, 2)
     mass_i: torch.Tensor     # (2^l,) int32 — exact integer mass sum
     count: torch.Tensor      # (2^l,) int32 — real (non-padding) members
+    # (2^l, 3) f32 — Σ w·(δxδx, δxδy, δyδy) about the stored COM, with float
+    # masses w; None when the tree was built without ``quad``.
+    quad: torch.Tensor | None = None
 
     @property
     def packed(self) -> torch.Tensor:
@@ -42,6 +50,14 @@ class Level(NamedTuple):
             self.aabb_min, self.aabb_max, self.com,
             self.mass_i.to(torch.float32)[:, None],
             self.count.to(torch.float32)[:, None]], dim=1)
+
+    @property
+    def packed_quad(self) -> torch.Tensor:
+        """(2^l, 11) f32 record: ``packed`` + [qxx, qxy, qyy]."""
+        if self.quad is None:
+            raise ValueError("this tree has no second moments: build it "
+                             "with quad=True for the multipole=2 planner")
+        return torch.cat([self.packed, self.quad], dim=1)
 
 
 class FlatTree(NamedTuple):
@@ -60,29 +76,37 @@ def _fill(like: torch.Tensor, value: float) -> torch.Tensor:
     return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
-def _leaf_level(pos3, mass2, unweighted_leaf_com: bool) -> Level:
+def _leaf_level(pos3, mass2, unweighted_leaf_com: bool,
+                quad: bool = False) -> Level:
     """pos3: (L, S, 2) sorted positions; mass2: (L, S)."""
     real = mass2 > 0
     real3 = real[..., None]
     aabb_min = torch.where(real3, pos3, _fill(pos3, BIG)).amin(dim=1)
     aabb_max = torch.where(real3, pos3, _fill(pos3, -BIG)).amax(dim=1)
     count = real.sum(dim=1, dtype=torch.int32)
-    mass_i = (torch.where(real, mass2, _fill(mass2, 0.0)).to(torch.int32)
-              .sum(dim=1, dtype=torch.int32))
+    w = torch.where(real, mass2, _fill(mass2, 0.0))
+    mass_i = w.to(torch.int32).sum(dim=1, dtype=torch.int32)
     if unweighted_leaf_com:
         num = torch.where(real3, pos3, _fill(pos3, 0.0)).sum(dim=1)
         den = torch.clamp_min(count, 1).to(torch.float32)[:, None]
     else:
-        w = torch.where(real, mass2, _fill(mass2, 0.0))
         num = (pos3 * w[..., None]).sum(dim=1)
         den = torch.clamp_min(w.sum(dim=1), 1e-30)[:, None]
     com = num / den
     empty = (count == 0)[:, None]
     e = _fill(pos3, EMPTY_POS)
+    q = None
+    if quad:
+        # About the COM as stored, whichever convention made it.
+        d = pos3 - com[:, None, :]
+        q = torch.where(empty, _fill(pos3, 0.0), torch.stack(
+            [(w * d[..., 0] * d[..., 0]).sum(dim=1),
+             (w * d[..., 0] * d[..., 1]).sum(dim=1),
+             (w * d[..., 1] * d[..., 1]).sum(dim=1)], dim=1))
     return Level(aabb_min=torch.where(empty, e, aabb_min),
                  aabb_max=torch.where(empty, e, aabb_max),
                  com=torch.where(empty, e, com),
-                 mass_i=mass_i, count=count)
+                 mass_i=mass_i, count=count, quad=q)
 
 
 def _combine(child: Level) -> Level:
@@ -107,10 +131,20 @@ def _combine(child: Level) -> Level:
     aabb_max = torch.where(cempty, _fill(cmax, -BIG), cmax).amax(dim=1)
     empty = (count == 0)[:, None]
     e = _fill(com, EMPTY_POS)
+    q = None
+    if child.quad is not None:
+        # Parallel axis: Q_p = Σ_c Q_c + m_c·(com_c − com_p)⊗(com_c − com_p),
+        # m_c the children's int32 masses as f32; empty children add 0.
+        d = ccom - com[:, None, :]
+        shift = torch.stack([d[..., 0] * d[..., 0], d[..., 0] * d[..., 1],
+                             d[..., 1] * d[..., 1]], dim=-1)
+        q = torch.where(empty, _fill(com, 0.0),
+                        (pair(child.quad) + massf[..., None] * shift
+                         ).sum(dim=1))
     return Level(aabb_min=torch.where(empty, e, aabb_min),
                  aabb_max=torch.where(empty, e, aabb_max),
                  com=torch.where(empty, e, com),
-                 mass_i=mass_i, count=count)
+                 mass_i=mass_i, count=count, quad=q)
 
 
 def _next_pow2(x: int) -> int:
@@ -118,9 +152,10 @@ def _next_pow2(x: int) -> int:
 
 
 def summarize_sorted(spos: torch.Tensor, smass: torch.Tensor,
-                     leaf_size: int = 64,
-                     unweighted_leaf_com: bool = True) -> FlatTree:
-    """Build the flat BVH over already spatially-ordered particles.
+                     leaf_size: int = 64, unweighted_leaf_com: bool = True,
+                     quad: bool = False) -> FlatTree:
+    """Build the flat BVH over already spatially-ordered particles, with
+    each level's second moments when ``quad``.
 
     AABBs, masses and COMs come from the current positions, so a stale
     Morton order only loosens AABBs (the conservative planner opens a bit
@@ -139,7 +174,7 @@ def summarize_sorted(spos: torch.Tensor, smass: torch.Tensor,
     pos3 = spos.reshape(n_leaves, leaf_size, 2)
     mass2 = smass.reshape(n_leaves, leaf_size)
 
-    levels = [_leaf_level(pos3, mass2, unweighted_leaf_com)]
+    levels = [_leaf_level(pos3, mass2, unweighted_leaf_com, quad)]
     while levels[0].aabb_min.shape[0] > 1:
         levels.insert(0, _combine(levels[0]))
     return FlatTree(levels=levels, leaf_pos=pos3, leaf_mass=mass2)
@@ -147,33 +182,39 @@ def summarize_sorted(spos: torch.Tensor, smass: torch.Tensor,
 
 def build_tree(pos: torch.Tensor, mass: torch.Tensor, leaf_size: int = 64,
                world_size: float = 100_000.0,
-               unweighted_leaf_com: bool = True, morton_bits: int = 15):
+               unweighted_leaf_com: bool = True, morton_bits: int = 15,
+               quad: bool = False):
     """Morton-sort the particles and build the flat BVH. Returns
     ``(tree, order)`` with ``sorted_x = x[order]``."""
     order = morton_order(pos, mass, world_size, bits=morton_bits)
     tree = summarize_sorted(pos[order], mass[order], leaf_size=leaf_size,
-                            unweighted_leaf_com=unweighted_leaf_com)
+                            unweighted_leaf_com=unweighted_leaf_com,
+                            quad=quad)
     return tree, order
 
 
 def tree_from_numpy(levels, leaf_pos, leaf_mass,
                     device: str | torch.device = "cpu") -> FlatTree:
     """A tree from host arrays. ``levels`` is a sequence, root first, of
-    ``(aabb_min, aabb_max, com, mass_i, count, ...)`` per level — the JAX
-    package's ``Level`` fields in order; fields past ``count`` (its
-    quadrupole moments) are ignored."""
+    ``(aabb_min, aabb_max, com, mass_i, count[, quad])`` per level — the
+    JAX package's ``Level`` fields in order. A level without ``quad`` (or
+    with None there) gets none."""
     def t(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     lv = [Level(t(l[0], torch.float32), t(l[1], torch.float32),
                 t(l[2], torch.float32), t(l[3], torch.int32),
-                t(l[4], torch.int32)) for l in levels]
+                t(l[4], torch.int32),
+                None if len(l) < 6 or l[5] is None
+                else t(l[5], torch.float32)) for l in levels]
     return FlatTree(levels=lv, leaf_pos=t(leaf_pos, torch.float32),
                     leaf_mass=t(leaf_mass, torch.float32))
 
 
 def tree_to_numpy(tree: FlatTree):
     """``(levels, leaf_pos, leaf_mass)`` as host arrays, levels as tuples of
-    ``(aabb_min, aabb_max, com, mass_i, count)``."""
-    levels = [tuple(a.cpu().numpy() for a in l) for l in tree.levels]
+    ``(aabb_min, aabb_max, com, mass_i, count, quad)`` (quad None when the
+    tree has none)."""
+    levels = [tuple(None if a is None else a.cpu().numpy() for a in l)
+              for l in tree.levels]
     return levels, tree.leaf_pos.cpu().numpy(), tree.leaf_mass.cpu().numpy()

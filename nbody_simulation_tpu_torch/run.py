@@ -7,9 +7,12 @@ frames and prints the once-per-second fps/ups/step/Counting telemetry
 (src/main.rs:148-156 semantics).
 
 With no flags it runs the reference galaxy (151,317 particles) with
-Barnes-Hut at θ=50 on the GPU; ``--force-path pallas`` runs the exact
-all-pairs kernels instead, and ``--energy-every K`` prints the total energy
-every K steps. ``--device`` (default ``cuda``) replaces the JAX package's
+Barnes-Hut at θ=50 on the GPU; ``--theta`` below 2 switches Barnes-Hut to
+the quality path (24-bit Morton keys, wide planner caps and the quadrupole
+sweep kernel), e.g. ``--scenario plummer --n 65536 --theta 0.5
+--weighted-leaf-com``; ``--force-path pallas`` runs the exact all-pairs
+kernels instead, and ``--energy-every K`` prints the total energy every K
+steps. ``--device`` (default ``cuda``) replaces the JAX package's
 ``--platform``; a CUDA run on a machine without CUDA raises rather than
 running on the CPU. Flags of modules not ported yet raise.
 """
