@@ -22,7 +22,16 @@ version at the main paths' shapes:
   and in the +clamp modes;
 - K1, K2 and the potential kernel (K6) at small N, where K2's tournament
   has one tile, an odd count of tiles or a ragged last tile;
-- K6 on the galaxy.
+- K6 on the galaxy;
+- the backward kernels of the gradient path: K7's two all-pairs sweeps on
+  4,096 sampled rows of the padded galaxy (the sampled rows of a full
+  launch bitwise those of the sampled launch) and at small N, K8's two
+  grouped sweeps at ``bh_accel_diff``'s galaxy shape; ``allpairs_accel_diff``
+  and θ=0 ``bh_accel_diff`` gradients against f64 torch autograd of the
+  direct sum on a random cloud; both differentiable forwards bitwise the
+  run mode's on the galaxy; value+grad of Σ|a|² on the galaxy (Barnes-Hut
+  and all-pairs) and on a 1,048,576-body disc, one of them traced; and the
+  gradient of the galaxy's spread after 4 Euler steps.
 
 Then it drives the main paths through the CLI: the Barnes-Hut galaxy
 (``python -m nbody_simulation_tpu_torch.run`` defaults) for 64 steps, the
@@ -34,7 +43,8 @@ all-pairs World (``sym_allpairs=False``); each run zeroes the kernels'
 launch counts just before and reads them just after. Four steps of each
 Barnes-Hut world are traced with torch.profiler (device time and
 operations per step, the sweep kernel's share; a trace without device
-time for the step or the sweep kernel fails). Every check that fails
+time for the step or the sweep kernel fails; a value+grad trace without
+the K8 kernels fails). Every check that fails
 raises, and the exit code is then nonzero. Progress lines carry the card's
 name and power limit. The last three lines are the kernel table as JSON,
 the card, and ``{"ok": true, "device": {...}}``.
@@ -90,11 +100,22 @@ def law_ops(form: str, rcp: str) -> int:
     """FP32 operations per pair that the pair law itself needs, besides its
     MUFU ops (``law_mufu``), in a form of ``csrc/pair_law.cuh``: "mono",
     an ordered pair of K1 or K3; "sym", an unordered pair of K2, applied
-    to both sides; "pot", a term of K6; "quad", a pair of K4. The sums into
+    to both sides; "pot", a term of K6; "quad", a pair of K4; "grad_i"
+    and "grad_j", a pair of the target-side (K7a, K8a) and source-side
+    (K7b, K8b) backward sweeps, whose ``rcp`` is always newton. The sums into
     the accumulators count; loads, loop control and K2's shuffles do not,
     being the implementation's. ``exact`` has no count: an IEEE division is
     no fixed number of operations."""
     base, _, guard = rcp.partition("+")
+    if form in ("grad_i", "grad_j"):
+        # grad_pair, always newton: d 2 sub; |d|_1 1 add; d2 2 mul, add; κ
+        # compare and select; q max; den 1 mul; the Newton step 3; the mask
+        # 2 compares and a select; t 2 mul, add; m·r and its products with
+        # gx, gy 3; r·r, m·r², ·t 3; 2·s, ·κ 2; psign 2 compares, 2
+        # selects; psign·q 2; 2sκ·d 2; their sums 2; mr2t·(…) 2; the two
+        # differences 2; the sums into the accumulators 2: 43. The j side
+        # (K7b, K8b) adds r·t and its sum.
+        return 43 if form == "grad_i" else 45
     if form == "quad":
         # _quad_tile: d 2 sub; |d|_1 1 add; d2 2 mul, add, max; the mask 2
         # compares and 2 selects; a·b and m·ab 2; the signs 2 compares and
@@ -212,11 +233,14 @@ def main() -> int:
     from nbody_simulation_tpu_torch.models.scenarios import (galaxy, plummer,
                                                              uniform_disc)
     from nbody_simulation_tpu_torch.ops import allpairs as ap
+    from nbody_simulation_tpu_torch.ops import allpairs_grad as agr
     from nbody_simulation_tpu_torch.ops import energy as en
     from nbody_simulation_tpu_torch.ops import traversal
+    from nbody_simulation_tpu_torch.ops import traversal_grad as tgr
     from nbody_simulation_tpu_torch.ops.force import direct_accel, pair_accel
     from nbody_simulation_tpu_torch.ops.morton import morton_sort_state
-    from nbody_simulation_tpu_torch.ops.tree import summarize_sorted
+    from nbody_simulation_tpu_torch.ops.tree import (build_tree,
+                                                     summarize_sorted)
     from nbody_simulation_tpu_torch.utils.telemetry import Counting
 
     t_start = time.perf_counter()
@@ -237,7 +261,7 @@ def main() -> int:
     if banned:
         raise RuntimeError(f"JAX or the JAX package was imported: {banned}")
     loaders = {"grouped_sweep": traversal._load_sweep_lib,
-               "allpairs": ap._load_lib}
+               "allpairs": ap._load_lib, "force_grad": agr._load_lib}
 
     def build(name):
         t = time.perf_counter()
@@ -902,6 +926,335 @@ def main() -> int:
     if not bool(torch.isfinite(oworld.state.pos).all()):
         raise RuntimeError("ordered all-pairs World: non-finite positions")
 
+    # -- 8b. the gradient path: K7 and K8 ------------------------------------
+    t_phase = time.perf_counter()
+
+    def grad_magnitudes(xi, yi, gx, gy, xj, yj, mj):
+        """|m·r·g| + |m·r²·t·(psign·q + 2sκ·d)| per component, and |r·t|:
+        the magnitudes the rounding of u and r·t scales with. u itself is
+        a poor scale: inside the softening its two terms cancel (for d
+        along g exactly), and on the galaxy's K8 shape the plain f32
+        version lies 5.1e-4·Σ|u| from an f64 truth but 5.6e-7 of these
+        sums (CPU run)."""
+        dx, dy = xj - xi, yj - yi
+        s, q, r, kappa = agr.pair_terms(dx, dy, SOFTENING2)
+        mr = mj * r
+        mr2t = (mj * (r * r) * (dx * gx + dy * gy)).abs()
+        two_sk = 2.0 * s * kappa
+        return ((mr * gx).abs() + mr2t * (q + (two_sk * dx).abs()),
+                (mr * gy).abs() + mr2t * (q + (two_sk * dy).abs()),
+                (r * (dx * gx + dy * gy)).abs())
+
+    def grad_sums(pos_i, g_i, pos_j, mass_j, side):
+        """``grad_magnitudes`` summed over the other axis, per target
+        (``side="i"``: the x and y scales) or per source (``"j"``: those
+        and the r·t scale), for the kernels' tolerances; chunks of ~2^25
+        pairs."""
+        rows_of, cols_of = (pos_i, pos_j) if side == "i" else (pos_j, pos_i)
+        rows = max(1, (1 << 25) // cols_of.shape[0])
+        out = torch.empty((rows_of.shape[0], 3), device=dev)
+        for r0 in range(0, rows_of.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            if side == "i":
+                terms = grad_magnitudes(
+                    pos_i[sl, 0:1], pos_i[sl, 1:2], g_i[sl, 0:1],
+                    g_i[sl, 1:2], pos_j[None, :, 0], pos_j[None, :, 1],
+                    mass_j[None, :])
+            else:
+                terms = grad_magnitudes(
+                    pos_i[None, :, 0], pos_i[None, :, 1], g_i[None, :, 0],
+                    g_i[None, :, 1], pos_j[sl, 0:1], pos_j[sl, 1:2],
+                    mass_j[sl, None])
+            for k, term in enumerate(terms):
+                out[sl, k] = term.sum(1)
+        return out[:, :2], out[:, 2]
+
+    def hold_k7(label, pos_i, g_i, pos_j, mass_j):
+        """K7a and K7b against their plain versions; returns their max
+        |d| (K7b: over p̄_j and m̄_j)."""
+        si, _ = grad_sums(pos_i, g_i, pos_j, mass_j, "i")
+        sj, sm_ = grad_sums(pos_i, g_i, pos_j, mass_j, "j")
+        ea = hold(f"{label}: allpairs_bwd_i vs plain, bound relative to "
+                  "sum(|m r g|+|m r^2 t (..)|)",
+                  agr.bwd_i_cuda(pos_i, g_i, pos_j, mass_j, SOFTENING2),
+                  agr.bwd_i_ref(pos_i, g_i, pos_j, mass_j, SOFTENING2), si)
+        pb, mb = agr.bwd_j_cuda(pos_i, g_i, pos_j, mass_j, SOFTENING2)
+        pw, mw = agr.bwd_j_ref(pos_i, g_i, pos_j, mass_j, SOFTENING2)
+        eb = max(hold(f"{label}: allpairs_bwd_j pbar vs plain, bound "
+                      "relative to sum(|m r g|+|m r^2 t (..)|)", pb, pw,
+                      sj),
+                 hold(f"{label}: allpairs_bwd_j mbar vs plain, bound "
+                      "relative to sum|r t|", mb, mw, sm_))
+        return ea, eb
+
+    # K7 on the padded galaxy (the all-pairs value+grad's shape): 4,096
+    # sampled targets against every source (K7a), every target against
+    # 4,096 sampled sources (K7b); the sampled rows of a full launch are
+    # bitwise those of the sampled launch, since each thread's loop is the
+    # same. Then ragged N.
+    grng = np.random.default_rng(5)
+    gbar = torch.tensor(grng.normal(0, 1, (n_gal, 2)).astype(np.float32),
+                        device=dev)
+    grows = torch.tensor(np.sort(grng.choice(n_gal, N_SAMPLED,
+                                             replace=False)), device=dev)
+    rp, rg, rm = (gpos[grows].contiguous(), gbar[grows].contiguous(),
+                  gmass[grows].contiguous())
+    k7a_err, _ = hold_k7(f"K7a galaxy, {N_SAMPLED} sampled targets",
+                         rp, rg, gpos, gmass)
+    _, k7b_err = hold_k7(f"K7b galaxy, {N_SAMPLED} sampled sources",
+                         gpos, gbar, rp, rm)
+    full_i = agr.bwd_i_cuda(gpos, gbar, gpos, gmass, SOFTENING2)
+    full_j = agr.bwd_j_cuda(gpos, gbar, gpos, gmass, SOFTENING2)
+    part_i = agr.bwd_i_cuda(rp, rg, gpos, gmass, SOFTENING2)
+    part_j = agr.bwd_j_cuda(gpos, gbar, rp, rm, SOFTENING2)
+    torch.cuda.synchronize()
+    if not (torch.equal(full_i[grows], part_i)
+            and torch.equal(full_j[0][grows], part_j[0])
+            and torch.equal(full_j[1][grows], part_j[1])):
+        raise RuntimeError("K7 at the full galaxy differs from the sampled "
+                           "launch on the sampled rows")
+    log("K7 at the full galaxy: sampled rows bitwise the sampled launch's")
+    del full_i, full_j, part_i, part_j
+    for n in (200, 512, 1000):
+        p_ = torch.tensor(grng.uniform(0, 1e5, (n, 2)).astype(np.float32),
+                          device=dev)
+        m_ = torch.tensor(grng.integers(1, 100, n).astype(np.float32),
+                          device=dev)
+        m_[0] = 7.5e7
+        g_ = torch.tensor(grng.normal(0, 1, (n, 2)).astype(np.float32),
+                          device=dev)
+        hold_k7(f"K7 N={n}", p_, g_, p_, m_)
+
+    # K8 at bh_accel_diff's shape on the galaxy (the planner's own columns,
+    # plan_leaves=1), every output compared.
+    gal0 = galaxy(seed=0).to(dev)
+    gtree, _ = build_tree(gal0.pos, gal0.mass, morton_bits=15)
+    k8x, k8y, k8m = traversal.bh_plan_sources(gtree, 50.0, 32, 16)
+    k8t = gtree.leaf_pos
+    kg, ks, kc = k8x.shape[0], k8t.shape[1], k8x.shape[1]
+    log(f"K8 galaxy shape (bh_accel_diff defaults): G={kg} S={ks} C={kc} "
+        f"({kg * ks * kc / 1e6:.1f}M pairs, every column)")
+    k8g = torch.tensor(grng.normal(0, 1, (kg, ks, 2)).astype(np.float32),
+                       device=dev)
+    k8in = (k8t, k8g, k8x, k8y, k8m)
+    k8_scale = [torch.empty_like(k8t)] + [torch.empty_like(k8x)
+                                         for _ in range(3)]
+    chunk = max(1, (1 << 25) // (ks * kc))
+    for g0 in range(0, kg, chunk):
+        sl = slice(g0, g0 + chunk)
+        ux, uy, rt = grad_magnitudes(
+            k8t[sl, :, 0:1], k8t[sl, :, 1:2], k8g[sl, :, 0:1],
+            k8g[sl, :, 1:2], k8x[sl, None], k8y[sl, None], k8m[sl, None])
+        k8_scale[0][sl] = torch.stack([ux.sum(-1), uy.sum(-1)], -1)
+        for k, term in enumerate((ux, uy, rt)):
+            k8_scale[k + 1][sl] = term.sum(1)
+    k8_tgt, k8_tgt_plain_ms = plain_timed(
+        lambda: tgr.grouped_bwd_tgt_ref(*k8in, SOFTENING2))
+    k8_src, k8_src_plain_ms = plain_timed(
+        lambda: tgr.grouped_bwd_src_ref(*k8in, SOFTENING2))
+    k8a_err = hold("K8a galaxy: grouped_bwd_tgt vs plain, bound relative to "
+                   "sum(|m r g|+|m r^2 t (..)|)",
+                   tgr.grouped_bwd_tgt_cuda(*k8in, SOFTENING2), k8_tgt,
+                   k8_scale[0])
+    k8b_err = max(hold(f"K8b galaxy: grouped_bwd_src {lab} vs plain, bound "
+                       "relative to " + ("sum|r t|" if lab == "m" else
+                                         "sum(|m r g|+|m r^2 t (..)|)"),
+                       got, want, sc)
+                  for lab, got, want, sc in zip(
+                      "xym", tgr.grouped_bwd_src_cuda(*k8in, SOFTENING2),
+                      k8_src, k8_scale[1:]))
+    del k8_tgt, k8_src, k8_scale
+
+    # An independent truth: f64 torch autograd of the direct sum on a
+    # random cloud (off the law's kinks, where autograd is the derivative).
+    trng = np.random.default_rng(6)
+    tpos = torch.tensor(trng.uniform(0, 1e5, (4096, 2)).astype(np.float32),
+                        device=dev)
+    tmass = torch.tensor(trng.integers(1, 100, 4096).astype(np.float32),
+                         device=dev)
+    tcot = torch.tensor(trng.normal(0, 1, (4096, 2)).astype(np.float32),
+                        device=dev)
+    p64 = tpos.double().requires_grad_(True)
+    m64 = tmass.double().requires_grad_(True)
+    (direct_accel(p64, m64, SOFTENING2) * tcot.double()).sum().backward()
+    for label, fn, kernels in (
+            ("allpairs_accel_diff", lambda p, m: agr.allpairs_accel_diff(
+                p, m, SOFTENING2), (agr.bwd_i_cuda, agr.bwd_j_cuda)),
+            ("bh_accel_diff theta=0", lambda p, m: tgr.bh_accel_diff(
+                p, m, theta=0.0, frontier_cap=64, leaf_cap=64,
+                unweighted_leaf_com=False),
+             (tgr.grouped_bwd_tgt_cuda, tgr.grouped_bwd_src_cuda))):
+        before = [k.launches for k in kernels]
+        p = tpos.clone().requires_grad_(True)
+        m = tmass.clone().requires_grad_(True)
+        (fn(p, m) * tcot).sum().backward()
+        rel_p = ((p.grad.double() - p64.grad).norm()
+                 / p64.grad.norm()).item()
+        rel_m = ((m.grad.double() - m64.grad).norm()
+                 / m64.grad.norm()).item()
+        ran = [k.launches - b for k, b in zip(kernels, before)]
+        log(f"{label} gradients (N=4096 random cloud) vs f64 autograd of "
+            f"the direct sum: positions {rel_p:.3e}, masses {rel_m:.3e} "
+            f"relative norm (bounds 1e-4, 1e-3); backward launches {ran}")
+        if not (rel_p < 1e-4 and rel_m < 1e-3 and ran == [1, 1]):
+            raise RuntimeError(f"{label}: gradients {rel_p}, {rel_m} from "
+                               f"the f64 truth, launches {ran}")
+    del p64, m64
+
+    # Forward parity: both differentiable forwards are the run mode's,
+    # bitwise, on the galaxy.
+    gp = gal0.pos.clone().requires_grad_(True)
+    bh_run = traversal.bh_accel(gal0.pos, gal0.mass, theta=50.0,
+                                frontier_cap=32, leaf_cap=16, multipole=1,
+                                morton_bits=15, plan_leaves=1, rcp="newton")
+    if not torch.equal(tgr.bh_accel_diff(gp, gal0.mass).detach(), bh_run):
+        raise RuntimeError("bh_accel_diff forward differs from bh_accel")
+    pp = gpos.clone().requires_grad_(True)
+    for sym, run_fn in ((False, lambda: ap.allpairs_accel(
+            gpos, gmass, softening2=SOFTENING2, rcp="newton")),
+                        (True, lambda: ap.allpairs_accel_sym(
+                            gpos, gmass, SOFTENING2, rcp="newton"))):
+        if not torch.equal(agr.allpairs_accel_diff(
+                pp, gmass, SOFTENING2, sym=sym).detach(), run_fn()):
+            raise RuntimeError(f"allpairs_accel_diff(sym={sym}) forward "
+                               "differs from run mode")
+    log("forward parity on the galaxy: bh_accel_diff == bh_accel "
+        "(multipole=1, 15-bit keys, newton), allpairs_accel_diff == "
+        "allpairs_accel and == allpairs_accel_sym with sym, bitwise")
+    del bh_run
+
+    # Value+grad of Σ|a|² (benchmarks/probe_grad_tpu.py's loss), with the
+    # launches of one call.
+    def value_grad(fn, pos, mass):
+        p = pos.detach().requires_grad_(True)
+        a = fn(p, mass)
+        loss = (a * a).sum()
+        return loss, torch.autograd.grad(loss, (p,))[0]
+
+    counted = {"K3": traversal.grouped_sweep, "K1": ap.allpairs_cuda,
+               "K2": ap.allpairs_sym_cuda, "K7a": agr.bwd_i_cuda,
+               "K7b": agr.bwd_j_cuda, "K8a": tgr.grouped_bwd_tgt_cuda,
+               "K8b": tgr.grouped_bwd_src_cuda}
+
+    def one_call(label, fn, pos, mass, expect):
+        for k in counted.values():
+            k.launches = 0
+        loss, grad = value_grad(fn, pos, mass)
+        torch.cuda.synchronize()
+        got = {k: v.launches for k, v in counted.items() if v.launches}
+        log(f"{label} value+grad: loss {loss.item():.6e}, launches {got}")
+        if got != expect or not bool(torch.isfinite(grad).all()):
+            raise RuntimeError(f"{label} value+grad: launches {got} (want "
+                               f"{expect}), finite grad "
+                               f"{bool(torch.isfinite(grad).all())}")
+        return got
+
+    disc = uniform_disc(N_BIG, seed=0).to(dev)
+    vg_ms, vg_launches = {}, {}
+    for label, fn, pos, mass, expect, reps in (
+            ("BH galaxy theta=50", tgr.bh_accel_diff, gal0.pos, gal0.mass,
+             {"K3": 1, "K8a": 1, "K8b": 1}, 5),
+            ("all-pairs galaxy (padded)",
+             lambda p, m: agr.allpairs_accel_diff(p, m, SOFTENING2),
+             gpos, gmass, {"K1": 1, "K7a": 1, "K7b": 1}, 3),
+            (f"BH disc N={N_BIG} theta=50", tgr.bh_accel_diff, disc.pos,
+             disc.mass, {"K3": 1, "K8a": 1, "K8b": 1}, 3)):
+        vg_launches[label] = one_call(label, fn, pos, mass, expect)
+        vg_ms[label] = timed_ms(lambda: value_grad(fn, pos, mass), reps=reps)
+        fwd_ms = timed_ms(lambda: fn(pos, mass), reps=reps)
+        log(f"{label}: value+grad {vg_ms[label]:.3f} ms, the forward alone "
+            f"{fwd_ms:.3f} ms (CUDA events after warm-up, {reps} calls)")
+    del disc
+
+    # One traced BH value+grad on the galaxy: device time, operations, and
+    # K8's share.
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        value_grad(tgr.bh_accel_diff, gal0.pos, gal0.mass)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(dev_us(e) for e in events) / 1e3
+    k8_ms = sum(dev_us(e) for e in events if "grouped_bwd" in e.key) / 1e3
+    k3_ms = sum(dev_us(e) for e in events
+                if "grouped_sweep_kernel" in e.key) / 1e3
+    n_ops = sum(1 for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if total <= 0 or k8_ms <= 0:
+        raise RuntimeError(f"BH value+grad trace: device time {total} ms, "
+                           f"K8 {k8_ms} ms: no K8 kernel in the trace")
+    top = sorted(events, key=dev_us, reverse=True)[:4]
+    log(f"BH galaxy value+grad trace: device time {total:.3f} ms in {n_ops} "
+        f"device operations; K8 {k8_ms:.3f} ms ({k8_ms / total:.0%}), K3 "
+        f"{k3_ms:.3f} ms, the rest (sort, tree, planner, their backward) "
+        f"{total - k8_ms - k3_ms:.3f} ms; the most device time: "
+        + "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in top))
+
+    # The gradient of the galaxy's spread after 4 Euler steps with respect
+    # to the initial positions: K8 once per step.
+    dt = float(np.float32(SimConfig().dt))
+    for k in counted.values():
+        k.launches = 0
+    p0 = gal0.pos.clone().requires_grad_(True)
+    p, v = p0, gal0.vel
+    for _ in range(4):
+        v = v + tgr.bh_accel_diff(p, gal0.mass) * dt
+        p = p + v * dt
+    spread = ((p - p.mean(0)) ** 2).sum()
+    (g0,) = torch.autograd.grad(spread, (p0,))
+    torch.cuda.synchronize()
+    traj = {k: v.launches for k, v in counted.items() if v.launches}
+    log(f"trajectory gradient (4 Euler steps of the galaxy): spread "
+        f"{spread.item():.6e}, |grad| {g0.norm().item():.6e}, finite "
+        f"{bool(torch.isfinite(g0).all())}, launches {traj}")
+    if (traj != {"K3": 4, "K8a": 4, "K8b": 4}
+            or not bool(torch.isfinite(g0).all())):
+        raise RuntimeError(f"trajectory gradient: launches {traj}")
+    del p0, p, v, g0, gp, pp
+
+    # Times at the gradient path's shapes, and bounds.
+    ms_k7a = timed_ms(lambda: agr.bwd_i_cuda(gpos, gbar, gpos, gmass,
+                                             SOFTENING2), reps=3)
+    ms_k7b = timed_ms(lambda: agr.bwd_j_cuda(gpos, gbar, gpos, gmass,
+                                             SOFTENING2), reps=3)
+    _, ms_k7a_plain = plain_timed(lambda: agr.bwd_i_ref(
+        gpos, gbar, gpos, gmass, SOFTENING2))
+    _, ms_k7b_plain = plain_timed(lambda: agr.bwd_j_ref(
+        gpos, gbar, gpos, gmass, SOFTENING2))
+    ms_k8a = timed_ms(lambda: tgr.grouped_bwd_tgt_cuda(*k8in, SOFTENING2),
+                      reps=20)
+    ms_k8b = timed_ms(lambda: tgr.grouped_bwd_src_cuda(*k8in, SOFTENING2),
+                      reps=20)
+    k7_pairs = float(n_gal) * n_gal
+    k8_pairs = float(kg) * ks * kc
+    k7a_bound = bound("grad_i", "newton", k7_pairs, 4.0 * 9 * n_gal,
+                      "force_grad", "allpairs_bwd_i")
+    k7b_bound = bound("grad_j", "newton", k7_pairs, 4.0 * 10 * n_gal,
+                      "force_grad", "allpairs_bwd_j")
+    k8_in_bytes = 4.0 * (4 * kg * ks + 3 * kg * kc)
+    k8a_bound = bound("grad_i", "newton", k8_pairs,
+                      k8_in_bytes + 8.0 * kg * ks, "force_grad",
+                      "grouped_bwd_tgt")
+    k8b_bound = bound("grad_j", "newton", k8_pairs,
+                      k8_in_bytes + 12.0 * kg * kc, "force_grad",
+                      "grouped_bwd_src")
+    for name, ms, pl_ms, bd in (
+            ("allpairs_bwd_i (K7a)", ms_k7a, ms_k7a_plain, k7a_bound),
+            ("allpairs_bwd_j (K7b)", ms_k7b, ms_k7b_plain, k7b_bound),
+            ("grouped_bwd_tgt (K8a)", ms_k8a, k8_tgt_plain_ms, k8a_bound),
+            ("grouped_bwd_src (K8b)", ms_k8b, k8_src_plain_ms, k8b_bound)):
+        log(f"{name}: kernel {ms:.4f} ms, plain {pl_ms:.3f} ms (once), "
+            f"bound {bd[0]:.4f} ms by {bd[1]} ({bd[2]})")
+    del gal0, gtree, k8in, k8t, k8g, k8x, k8y, k8m, gbar
+    log(f"phase gradients: {time.perf_counter() - t_phase:.1f} s")
+
     # -- 9. times -------------------------------------------------------------
     main_ap = pcfg.resolved_rcp()
     ms_sym = timed_ms(lambda: ap.allpairs_accel_sym(
@@ -972,6 +1325,20 @@ def main() -> int:
         entry("potential", "allpairs.cu",
               "nbody_simulation_tpu/ops/energy.py:118", pot_launches,
               pot_err, ms_pot, ms_pot_plain, pot_bound),
+        entry("allpairs_bwd_i", "force_grad.cu",
+              "nbody_simulation_tpu/ops/allpairs_grad.py:183",
+              vg_launches["all-pairs galaxy (padded)"]["K7a"], k7a_err,
+              ms_k7a, ms_k7a_plain, k7a_bound),
+        entry("allpairs_bwd_j", "force_grad.cu",
+              "nbody_simulation_tpu/ops/allpairs_grad.py:198",
+              vg_launches["all-pairs galaxy (padded)"]["K7b"], k7b_err,
+              ms_k7b, ms_k7b_plain, k7b_bound),
+        entry("grouped_bwd_tgt", "force_grad.cu",
+              "nbody_simulation_tpu/ops/traversal_grad.py:128", traj["K8a"],
+              k8a_err, ms_k8a, k8_tgt_plain_ms, k8a_bound),
+        entry("grouped_bwd_src", "force_grad.cu",
+              "nbody_simulation_tpu/ops/traversal_grad.py:143", traj["K8b"],
+              k8b_err, ms_k8b, k8_src_plain_ms, k8b_bound),
     ]}
     log(f"chip_smoke: every check passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -10,8 +10,11 @@
 //   sym_r      the shared pair kernel k(d) of _sym_r (allpairs.py:103-137):
 //              K2 applies m_j*d*k to i and -m_i*d*k to j;
 //   pot_term   the counterpart potential of pot_tile (nbody_simulation_tpu/
-//              ops/energy.py:46-56): K6.
-// Each comes in the five rcp modes of config.RCP_MODES:
+//              ops/energy.py:46-56): K6;
+//   grad_pair  the backward law of _pair_terms + _u_terms (nbody_simulation_
+//              tpu/ops/allpairs_grad.py:39-68): K7 and K8, always rcp.approx
+//              plus one Newton step (the rcp modes below do not apply).
+// The forward forms come in the five rcp modes of config.RCP_MODES:
 //   0 exact         IEEE division
 //   1 newton        rcp.approx.f32 plus one Newton step
 //   2 approx        rcp.approx.f32 alone
@@ -218,6 +221,46 @@ __device__ __forceinline__ float pot_term(float dx, float dy, float m,
       max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
   const float phi = __fmul_rn(-m, __frsqrt_rn(d2));
   return is_normal(s) ? phi : 0.0f;
+}
+
+// Backward law: one pair's share of the vector-Jacobian product of the
+// ordered force c = m * d * r, r = 1/(s * q), s = |d|_1, q = max(|d|_2^2,
+// eps), for the target's cotangent g:
+//   t  = d . g
+//   u  = m*r*g - (m*r^2*t) * (psign(d)*q + 2*s*kappa*d),  kappa = [d2 > eps]
+// u is the cotangent of d = p_src - p_tgt (the source gets +u, the target
+// -u) and r*t that of the source mass. psign(x) is +1 at x == 0, the JAX
+// subgradient of |x| (select(x >= 0, 1, -1)); kappa is strict, so at
+// d2 == eps the clamp's branch is the constant one. The reciprocal is
+// rcp.approx plus one Newton step, whatever the forward's mode, as the JAX
+// backward runs on its chip; a masked pair (|d|_1 not a normal float) gets
+// r = 0. Every product is computed, never branched on: where r*r overflows
+// or d is not finite, 0 * inf gives NaN as in the JAX kernels. The operation
+// order is _u_terms': (m*r)*g, (m*(r*r))*t, (2*s)*kappa.
+__device__ __forceinline__ void grad_pair(float dx, float dy, float gx,
+                                          float gy, float m, float soft2,
+                                          float& ux, float& uy, float& r,
+                                          float& t) {
+  const float s = __fadd_rn(fabsf(dx), fabsf(dy));
+  const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+  const float kappa = d2 > soft2 ? 1.0f : 0.0f;
+  const float q = max_nan(d2, soft2);
+  const float den = __fmul_rn(s, q);
+  float rr = rcp_approx(den);
+  rr = __fmul_rn(rr, __fsub_rn(2.0f, __fmul_rn(den, rr)));
+  r = is_normal(s) ? rr : 0.0f;
+  t = __fadd_rn(__fmul_rn(dx, gx), __fmul_rn(dy, gy));
+  const float mr = __fmul_rn(m, r);
+  const float mr2t = __fmul_rn(__fmul_rn(m, __fmul_rn(r, r)), t);
+  const float two_sk = __fmul_rn(__fmul_rn(2.0f, s), kappa);
+  const float px = dx >= 0.0f ? 1.0f : -1.0f;
+  const float py = dy >= 0.0f ? 1.0f : -1.0f;
+  ux = __fsub_rn(__fmul_rn(mr, gx),
+                 __fmul_rn(mr2t, __fadd_rn(__fmul_rn(px, q),
+                                           __fmul_rn(two_sk, dx))));
+  uy = __fsub_rn(__fmul_rn(mr, gy),
+                 __fmul_rn(mr2t, __fadd_rn(__fmul_rn(py, q),
+                                           __fmul_rn(two_sk, dy))));
 }
 
 }  // namespace pair_law

@@ -1,5 +1,6 @@
 from nbody_simulation_tpu_torch.ops.allpairs import (allpairs_accel,
                                                      allpairs_accel_sym)
+from nbody_simulation_tpu_torch.ops.allpairs_grad import allpairs_accel_diff
 from nbody_simulation_tpu_torch.ops.energy import (allpairs_potential,
                                                    bh_total_energy,
                                                    kinetic_energy,
@@ -24,6 +25,7 @@ __all__ = [
     "direct_accel_at",
     "allpairs_accel",
     "allpairs_accel_sym",
+    "allpairs_accel_diff",
     "allpairs_potential",
     "bh_total_energy",
     "kinetic_energy",

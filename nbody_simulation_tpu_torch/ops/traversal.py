@@ -54,6 +54,18 @@ def _group_node_d2(gmin, gmax, nmin, nmax, ncom):
     return disjoint, s2, dx * dx + dy * dy
 
 
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for an integer index of any shape, by ``index_select``:
+    the same values. Under autograd its backward adds the duplicates with
+    atomics, where advanced indexing's backward sorts the indices and adds
+    each row's duplicates one after another. In the planner every group
+    gathers the same few top-level nodes, and with that sorted backward one
+    galaxy Barnes-Hut value+grad took 171.7 ms on an H100 instead of
+    27.8 ms (PERF.md)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(
+        *idx.shape, *table.shape[1:])
+
+
 def _compact(flags: torch.Tensor, values: torch.Tensor, cap: int):
     """Prefix-compact ``values`` where ``flags`` into per-row lists of width
     ``cap``. Returns (lists (G,cap) int32, valid (G,cap) bool, overflow
@@ -160,8 +172,8 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
         w, ncols = packed_child.shape
         # The fan children of frontier node k are rows fan·k .. fan·k+fan−1:
         # one gather by parent fetches them, child-interleaved per parent.
-        rec = (packed_child.reshape(w // fan, fan * ncols)[frontier]
-               .reshape(g_, fw * fan, ncols))
+        rec = _rows(packed_child.reshape(w // fan, fan * ncols),
+                    frontier).reshape(g_, fw * fan, ncols)
         cand = (frontier[:, :, None] * fan
                 + torch.arange(fan, dtype=torch.int32, device=dev)
                 ).reshape(g_, fw * fan)
@@ -238,8 +250,8 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
     # Leaf tiles: gather (G, L, S) particle data; invalid slots massless,
     # particles without second moments.
     leaf_ids = leaf_ids.to(torch.int64)
-    lp = tree.leaf_pos[leaf_ids]                        # (G, L, S, 2)
-    lm = tree.leaf_mass[leaf_ids] * leaf_valid[..., None]
+    lp = _rows(tree.leaf_pos, leaf_ids)                 # (G, L, S, 2)
+    lm = _rows(tree.leaf_mass, leaf_ids) * leaf_valid[..., None]
     n_src = leaf_ids.shape[1] * tree.leaf_pos.shape[1]
     src_cols[0].append(lp[..., 0].reshape(g_rows, n_src))
     src_cols[1].append(lp[..., 1].reshape(g_rows, n_src))
