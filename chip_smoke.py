@@ -31,7 +31,19 @@ version at the main paths' shapes:
   direct sum on a random cloud; both differentiable forwards bitwise the
   run mode's on the galaxy; value+grad of Σ|a|² on the galaxy (Barnes-Hut
   and all-pairs) and on a 1,048,576-body disc, one of them traced; and the
-  gradient of the galaxy's spread after 4 Euler steps.
+  gradient of the galaxy's spread after 4 Euler steps;
+- the multi-device paths on a ``LocalMesh`` of P shards on the card (one
+  card runs the sharded schedule and its kernels; no interconnect): the
+  cross-shard symmetric kernel (K9) in all five rcp modes on 4,096 sampled
+  rows of each side at both shard shapes below, bitwise on two calls, and
+  its NaN pattern; the galaxy at P=3 (the symmetric ring: K2, then one K9
+  round per shard) held to single-device K2, ``make_sharded_step`` with
+  its diagnostics, frame (pixel for pixel the single-device dense and
+  sparse frames) and exact energy, one traced step; the galaxy at P=4 (the
+  ordered ring: K2 and K1) and ``bh_sharded_accel`` there against
+  ``bh_accel``; ``ring_allpairs_accel_diff`` at P=3 against f64 autograd;
+  the 1,048,576-body disc at P=8 (K=4 rounds with the half round), its
+  ring held on sampled rows and two steps timed.
 
 Then it drives the main paths through the CLI: the Barnes-Hut galaxy
 (``python -m nbody_simulation_tpu_torch.run`` defaults) for 64 steps, the
@@ -39,8 +51,9 @@ Then it drives the main paths through the CLI: the Barnes-Hut galaxy
 --weighted-leaf-com --energy-every 8``) for 32 steps, the all-pairs galaxy
 with energy telemetry (``--force-path pallas --energy-every 8``) for 32
 steps, plus 8 steps of the galaxy World at θ=0.5 and 4 of the ordered
-all-pairs World (``sym_allpairs=False``); each run zeroes the kernels'
-launch counts just before and reads them just after. Four steps of each
+all-pairs World (``sym_allpairs=False``), and ``make_sharded_step`` on
+the P=3 galaxy and the P=8 disc; each run zeroes the kernels' launch counts
+just before and reads them just after. Four steps of each
 Barnes-Hut world are traced with torch.profiler (device time and
 operations per step, the sweep kernel's share; a trace without device
 time for the step or the sweep kernel fails; a value+grad trace without
@@ -1302,6 +1315,306 @@ def main() -> int:
         log(f"{label} bound at N={N_BIG}: {bd[0]:.2f} ms by {bd[1]} "
             f"({bd[2]})")
 
+    # -- 10. the multi-device paths on one card: a LocalMesh of P shards ----
+    # One card measures the sharded schedule and its kernels: the shards'
+    # blocks move by tensor copies on the card, not over an interconnect.
+    from nbody_simulation_tpu_torch import parallel as par
+    from nbody_simulation_tpu_torch.ops.raster import (render_frame,
+                                                       render_frame_sparse,
+                                                       sparse_to_frame)
+    t_phase = time.perf_counter()
+    md_counted = {"K9": ap.allpairs_sym_pair_cuda, "K2": ap.allpairs_sym_cuda,
+                  "K1": ap.allpairs_cuda, "K6": en.potential_cuda,
+                  "K3": traversal.grouped_sweep, "K7a": agr.bwd_i_cuda,
+                  "K7b": agr.bwd_j_cuda}
+
+    def zero_counts():
+        for k in md_counted.values():
+            k.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k: v.launches for k, v in md_counted.items() if v.launches}
+
+    def hold_k9(label, pi, mi, pj, mj, modes):
+        """K9 against its plain version on N_SAMPLED rows of each side, in
+        each of ``modes``, and bitwise equal on two calls; returns the max
+        |d| per mode."""
+        n = pi.shape[0]
+        rows = torch.tensor(np.sort(np.random.default_rng(7).choice(
+            n, N_SAMPLED, replace=False)), device=dev)
+        want_i = ap.allpairs_accel_sym_pair_ref(
+            pi[rows].contiguous(), mi[rows].contiguous(), pj, mj,
+            SOFTENING2)[0]
+        want_j = ap.allpairs_accel_sym_pair_ref(
+            pi, mi, pj[rows].contiguous(), mj[rows].contiguous(),
+            SOFTENING2)[1]
+        sc_i = ap.pair_sums(pi[rows], pj, mj, abs_terms, SOFTENING2)
+        sc_j = ap.pair_sums(pj[rows], pi, mi, abs_terms, SOFTENING2)
+        errs = {}
+        for rcp in modes:
+            ai, aj = ap.allpairs_accel_sym_pair(pi, mi, pj, mj, SOFTENING2,
+                                                rcp=rcp)
+            bi, bj = ap.allpairs_accel_sym_pair(pi, mi, pj, mj, SOFTENING2,
+                                                rcp=rcp)
+            torch.cuda.synchronize()
+            if not (torch.equal(ai, bi) and torch.equal(aj, bj)):
+                raise RuntimeError(f"{label} rcp={rcp}: two calls differ")
+            errs[rcp] = max(
+                hold(f"{label} rcp={rcp}: i side, {N_SAMPLED} sampled rows",
+                     ai[rows], want_i, sc_i),
+                hold(f"{label} rcp={rcp}: j side, {N_SAMPLED} sampled rows",
+                     aj[rows], want_j, sc_j))
+        return errs
+
+    # The galaxy at P=3: 151,317 particles in 3 shards of L=51,200. Auto
+    # dispatch takes the symmetric ring: K2 on each shard, then one full
+    # round of K9 per shard.
+    gal_host = galaxy(seed=0)
+    n_real = gal_host.n_real
+    mesh3 = par.LocalMesh(3, dev)
+    st3 = par.shard_state(gal_host, mesh3)
+    l3 = st3.n // 3
+    log(f"multi-device galaxy P=3: N={st3.n}, L={l3} per shard")
+    if (st3.n, l3) != (153_600, 51_200):
+        raise RuntimeError(f"P=3 galaxy shards {st3.n}, {l3}")
+    ring3 = par.ring_allpairs_accel(st3.pos, st3.mass, mesh3, rcp=main_ap)
+    again = par.ring_allpairs_accel(st3.pos, st3.mass, mesh3, rcp=main_ap)
+    single3 = ap.allpairs_accel_sym(st3.pos, st3.mass, SOFTENING2,
+                                    rcp=main_ap)
+    torch.cuda.synchronize()
+    if not torch.equal(ring3, again):
+        raise RuntimeError("P=3 symmetric ring: two calls differ")
+    if not bool(torch.isfinite(ring3).all()):
+        raise RuntimeError("P=3 symmetric ring: non-finite forces")
+    ring3_err = hold(f"P=3 symmetric ring vs single-device K2 (N={st3.n}, "
+                     f"rcp={main_ap}), {n_real} real rows; two calls bitwise "
+                     "equal", ring3[:n_real], single3[:n_real],
+                     gscale[:n_real])
+    del again, single3
+
+    # The main path: make_sharded_step on the P=3 galaxy, with its
+    # diagnostics, one frame and one exact energy.
+    step3 = par.make_sharded_step(mesh3, pcfg)
+    diag0 = par.sharded_diagnostics(st3, mesh3)
+    md_steps = 4
+    zero_counts()
+    s3 = st3
+    for _ in range(md_steps):
+        s3 = step3(s3)
+    p3_counts = read_counts()
+    log(f"P=3 galaxy: {md_steps} make_sharded_step steps, launches "
+        f"{p3_counts}")
+    if p3_counts != {"K9": 3 * md_steps, "K2": 3 * md_steps}:
+        raise RuntimeError(f"P=3 sharded step launches {p3_counts}")
+    diag = par.sharded_diagnostics(s3, mesh3)
+    if not (all(bool(torch.isfinite(v.double()).all()) for v in diag.values())
+            and torch.equal(diag["total_mass"], diag0["total_mass"])
+            and abs(diag["total_mass"].item() - mass0) <= 1e-6 * mass0
+            and diag["n_live"].item() == n_real
+            and bool(torch.isfinite(s3.pos).all())):
+        raise RuntimeError(f"P=3 sharded step diagnostics {diag}")
+    log(f"P=3 diagnostics after {md_steps} steps: total mass "
+        f"{diag['total_mass'].item():.1f} unchanged, n_live "
+        f"{diag['n_live'].item()}, kinetic energy "
+        f"{diag['kinetic_energy'].item():.6e}, positions finite")
+    frame = par.sharded_render_frame(s3.pos, s3.vel, s3.mass, mesh3)
+    dense = render_frame(s3.pos, s3.vel, s3.mass)
+    sparse = sparse_to_frame(*render_frame_sparse(s3.pos, s3.vel, s3.mass,
+                                                  cap=s3.n))
+    if not (torch.equal(frame, dense)
+            and np.array_equal(frame.cpu().numpy(), sparse)):
+        raise RuntimeError("P=3 sharded frame differs from the single-device "
+                           "frame")
+    lit = int((frame[..., 3] > 0).sum())
+    log(f"P=3 sharded frame == single-device dense and sparse frames pixel "
+        f"for pixel ({lit} lit pixels)")
+    if lit == 0:
+        raise RuntimeError("P=3 sharded frame is dark")
+    zero_counts()
+    energy3 = par.sharded_total_energy(s3, mesh3)
+    e_counts = read_counts()
+    pe1 = en.potential_energy(s3.pos, s3.mass, SOFTENING2).item()
+    ke1 = en.kinetic_energy(s3.vel, s3.mass).item()
+    pe3, ke3 = (energy3["potential_energy"].item(),
+                energy3["kinetic_energy"].item())
+    log(f"P=3 sharded_total_energy: U {pe3:.6e} (single device "
+        f"{pe1:.6e}), KE {ke3:.6e} ({ke1:.6e}); launches {e_counts}")
+    if (e_counts != {"K6": 9} or abs(pe3 - pe1) > 1e-5 * abs(pe1)
+            or abs(ke3 - ke1) > 1e-5 * abs(ke1)):
+        raise RuntimeError(f"P=3 sharded energy {energy3}, launches "
+                           f"{e_counts}")
+    ms_ring3 = timed_ms(lambda: par.ring_allpairs_accel(
+        st3.pos, st3.mass, mesh3, rcp=main_ap), reps=10)
+    ms_step3 = timed_ms(lambda: step3(st3), reps=10)
+    ms_k2_3 = timed_ms(lambda: ap.allpairs_accel_sym(
+        st3.pos, st3.mass, SOFTENING2, rcp=main_ap), reps=10)
+    log(f"P=3 galaxy: ring force {ms_ring3:.4f} ms, sharded step "
+        f"{ms_step3:.4f} ms; single-device K2 on the same N={st3.n} "
+        f"{ms_k2_3:.4f} ms (CUDA events, 10 calls)")
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step3(st3)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev_total = sum(dev_us(e) for e in events) / 2e3
+    rounds = sum(dev_us(e) for e in events
+                 if "allpairs_sym_round" in e.key) / 2e3
+    n_ops = sum(1 for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")) / 2
+    if dev_total <= 0 or rounds <= 0:
+        raise RuntimeError("P=3 step trace recorded no device time")
+    log(f"P=3 step trace (2 steps): device time {dev_total:.3f} ms per step "
+        f"in {n_ops:.0f} device operations; K2 and K9 rounds {rounds:.3f} ms "
+        f"({rounds / dev_total:.0%}), the rest (finishes, shard copies, "
+        f"adds, integration) {dev_total - rounds:.3f} ms")
+
+    # K9 alone at the P=3 galaxy's shard shape: shard 0 against shard 1.
+    pi, mi = st3.pos[:l3].contiguous(), st3.mass[:l3].contiguous()
+    pj, mj = st3.pos[l3:2 * l3].contiguous(), st3.mass[l3:2 * l3].contiguous()
+    k9_err = hold_k9(f"K9 L={l3} (galaxy shards 0, 1)", pi, mi, pj, mj,
+                     RCP_MODES)
+    _, ms_k9_plain = plain_timed(lambda: ap.allpairs_accel_sym_pair_ref(
+        pi, mi, pj, mj, SOFTENING2))
+    ms_k9 = timed_ms(lambda: ap.allpairs_accel_sym_pair(
+        pi, mi, pj, mj, SOFTENING2, rcp=main_ap), reps=20)
+    k9_bound = bound("sym", main_ap, float(l3) * l3, 40.0 * l3, "allpairs",
+                     f"allpairs_sym_roundILi{mode}ELb0E")
+    log(f"K9 at L={l3}: kernel {ms_k9:.4f} ms, plain {ms_k9_plain:.3f} ms "
+        f"(once), bound {k9_bound[0]:.4f} ms by {k9_bound[1]} "
+        f"({k9_bound[2]})")
+
+    # K9's NaN pattern, one NaN x on the i side. exact: that row's x NaN and
+    # y 0, every j row's x NaN and y finite. +clamp: max(NaN, clamp) is NaN,
+    # so the NaN row and every j row are NaN in both components.
+    npi = pi.clone()
+    npi[5, 0] = float("nan")
+    for rcp in ("exact", "approx+clamp"):
+        ai, aj = ap.allpairs_accel_sym_pair(npi, mi, pj, mj, SOFTENING2,
+                                            rcp=rcp)
+        torch.cuda.synchronize()
+        others = torch.cat([ai[:5], ai[6:]])
+        if rcp == "exact":
+            ok = (bool(torch.isnan(ai[5, 0])) and ai[5, 1].item() == 0.0
+                  and bool(torch.isnan(aj[:, 0]).all())
+                  and bool(torch.isfinite(aj[:, 1]).all()))
+        else:
+            ok = (bool(torch.isnan(ai[5]).all())
+                  and bool(torch.isnan(aj).all()))
+        if not (ok and bool(torch.isfinite(others).all())):
+            raise RuntimeError(f"K9 rcp={rcp}: NaN pattern differs")
+    log("K9 NaN pattern (one NaN x on the i side): exact, that row x NaN and "
+        "y 0, every j row x NaN and y finite; approx+clamp, that row and "
+        "every j row NaN; other i rows finite")
+    del npi, ai, aj, others
+
+    # The galaxy at P=4: auto dispatch takes the ordered ring (K2 self, K1
+    # visiting), and the replicated-tree Barnes-Hut.
+    mesh4 = par.LocalMesh(4, dev)
+    st4 = par.shard_state(gal_host, mesh4)
+    zero_counts()
+    ring4 = par.ring_allpairs_accel(st4.pos, st4.mass, mesh4, rcp=main_ap)
+    p4_counts = read_counts()
+    single4 = ap.allpairs_accel_sym(st4.pos, st4.mass, SOFTENING2,
+                                    rcp=main_ap)
+    if p4_counts != {"K2": 4, "K1": 12}:
+        raise RuntimeError(f"P=4 ring launches {p4_counts}")
+    ring4_err = hold(f"P=4 ordered ring vs single-device K2 (N={st4.n}, "
+                     f"L={st4.n // 4}), {n_real} real rows; launches "
+                     f"{p4_counts}", ring4[:n_real], single4[:n_real],
+                     gscale[:n_real])
+    ms_ring4 = timed_ms(lambda: par.ring_allpairs_accel(
+        st4.pos, st4.mass, mesh4, rcp=main_ap), reps=5)
+    log(f"P=4 galaxy ordered ring: {ms_ring4:.4f} ms (CUDA events, 5 calls)")
+    del ring4, single4
+    bh_cfg = SimConfig(force_path="bh")
+    zero_counts()
+    bh4 = par.bh_sharded_accel(st4.pos, st4.mass, mesh4, config=bh_cfg)
+    bh_counts = read_counts()
+    bh_f, bh_l = bh_cfg.resolved_caps()
+    bh1 = traversal.bh_accel(st4.pos, st4.mass, theta=bh_cfg.theta,
+                             frontier_cap=bh_f, leaf_cap=bh_l,
+                             rcp=bh_cfg.resolved_rcp(bh=True))
+    torch.cuda.synchronize()
+    if bh_counts != {"K3": 4}:
+        raise RuntimeError(f"bh_sharded launches {bh_counts}")
+    hold(f"bh_sharded P=4 galaxy vs single-device bh_accel (theta=50), "
+         f"{n_real} real rows, bound relative to the all-pairs sum|c|; "
+         f"bitwise equal: {torch.equal(bh4, bh1)}", bh4[:n_real],
+         bh1[:n_real], gscale[:n_real])
+    del bh4, bh1, st4, ring3
+
+    # ring_allpairs_accel_diff at P=3 against f64 autograd of the direct sum
+    # on a random cloud of 3 x 1024.
+    drng = np.random.default_rng(8)
+    dpos = torch.tensor(drng.uniform(0, 1e5, (3072, 2)).astype(np.float32),
+                        device=dev)
+    dmass = torch.tensor(drng.integers(1, 100, 3072).astype(np.float32),
+                         device=dev)
+    dcot = torch.tensor(drng.normal(0, 1, (3072, 2)).astype(np.float32),
+                        device=dev)
+    p64 = dpos.double().requires_grad_(True)
+    m64 = dmass.double().requires_grad_(True)
+    (direct_accel(p64, m64, SOFTENING2) * dcot.double()).sum().backward()
+    p = dpos.clone().requires_grad_(True)
+    m = dmass.clone().requires_grad_(True)
+    zero_counts()
+    (par.ring_allpairs_accel_diff(p, m, mesh3) * dcot).sum().backward()
+    rg_counts = read_counts()
+    rel_p = ((p.grad.double() - p64.grad).norm() / p64.grad.norm()).item()
+    rel_m = ((m.grad.double() - m64.grad).norm() / m64.grad.norm()).item()
+    log(f"ring_allpairs_accel_diff P=3 (N=3072) vs f64 autograd of the "
+        f"direct sum: positions {rel_p:.3e}, masses {rel_m:.3e} relative "
+        f"norm (bounds 1e-4, 1e-3); launches {rg_counts}")
+    if not (rel_p < 1e-4 and rel_m < 1e-3
+            and rg_counts == {"K9": 3, "K2": 3, "K7a": 9, "K7b": 9}):
+        raise RuntimeError(f"ring gradient {rel_p}, {rel_m}, launches "
+                           f"{rg_counts}")
+    del p64, m64, p, m
+
+    # The 1,048,576-body disc at P=8 (L=131,072): the even symmetric ring,
+    # K=4 rounds with the half round.
+    disc8 = uniform_disc(N_BIG, seed=0)
+    mesh8 = par.LocalMesh(8, dev)
+    st8 = par.shard_state(disc8, mesh8)
+    l8 = st8.n // 8
+    step8 = par.make_sharded_step(mesh8, pcfg)
+    zero_counts()
+    s8 = step8(st8)
+    p8_counts = read_counts()
+    log(f"P=8 disc N={st8.n} (L={l8}): one make_sharded_step step, launches "
+        f"{p8_counts}")
+    if p8_counts != {"K9": 32, "K2": 8} or not bool(
+            torch.isfinite(s8.pos).all()):
+        raise RuntimeError(f"P=8 sharded step launches {p8_counts}")
+    rows8 = torch.tensor(np.sort(np.random.default_rng(9).choice(
+        N_BIG, N_SAMPLED, replace=False)), device=dev)
+    ring8 = par.ring_allpairs_accel(st8.pos, st8.mass, mesh8, rcp=main_ap)
+    t8 = st8.pos[rows8].contiguous()
+    hold(f"P=8 symmetric ring vs plain, N={N_BIG}, {N_SAMPLED} sampled rows",
+         ring8[rows8], ap.allpairs_accel_ref(t8, None, st8.pos, st8.mass,
+                                             SOFTENING2),
+         ap.pair_sums(t8, st8.pos, st8.mass, abs_terms, SOFTENING2))
+    del ring8, s8
+    ms_step8 = timed_ms(lambda: step8(st8), reps=2, warmup=0)
+    log(f"P=8 disc: sharded step {ms_step8:.2f} ms (CUDA events, 2 steps)")
+    p8i, m8i = st8.pos[:l8].contiguous(), st8.mass[:l8].contiguous()
+    p8j = st8.pos[4 * l8:5 * l8].contiguous()
+    m8j = st8.mass[4 * l8:5 * l8].contiguous()
+    hold_k9(f"K9 L={l8} (disc shards 0, 4)", p8i, m8i, p8j, m8j, RCP_MODES)
+    ms_k9_8 = timed_ms(lambda: ap.allpairs_accel_sym_pair(
+        p8i, m8i, p8j, m8j, SOFTENING2, rcp=main_ap), reps=3)
+    k9_bound8 = bound("sym", main_ap, float(l8) * l8, 40.0 * l8, "allpairs",
+                      f"allpairs_sym_roundILi{mode}ELb0E")
+    log(f"K9 at L={l8}: kernel {ms_k9_8:.4f} ms, bound {k9_bound8[0]:.4f} ms "
+        f"by {k9_bound8[1]}")
+    del st8, disc8, p8i, m8i, p8j, m8j
+    log(f"phase multi-device: {time.perf_counter() - t_phase:.1f} s")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bd):
         return {"name": name, "route": "cuda",
                 "source": f"nbody_simulation_tpu_torch/csrc/{source}",
@@ -1339,6 +1652,9 @@ def main() -> int:
         entry("grouped_bwd_src", "force_grad.cu",
               "nbody_simulation_tpu/ops/traversal_grad.py:143", traj["K8b"],
               k8b_err, ms_k8b, k8_src_plain_ms, k8b_bound),
+        entry("allpairs_sym_pair", "allpairs.cu",
+              "nbody_simulation_tpu/ops/allpairs.py:441", p3_counts["K9"],
+              k9_err[main_ap], ms_k9, ms_k9_plain, k9_bound),
     ]}
     log(f"chip_smoke: every check passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,6 @@
 // All-pairs kernels for Hopper (sm_90a): the ordered force sweep (K1), the
-// symmetric third-law force sweep (K2), both in the five rcp modes of
-// pair_law.cuh, and the ordered potential sweep (K6).
+// symmetric third-law force sweep (K2) and its cross-shard form (K9), all in
+// the five rcp modes of pair_law.cuh, and the ordered potential sweep (K6).
 //
 // K1 replaces nbody_simulation_tpu/ops/allpairs.py:_allpairs_kernel (called
 // by allpairs_accel, pallas_call at :537):
@@ -51,14 +51,30 @@
 // sums from round to round; the result is rounded to f32 once. So the
 // error is that of a 32-term f32 sum and does not grow with N.
 //
+// K9 replaces _allpairs_sym_pair_kernel (called by allpairs_accel_sym_pair,
+// pallas_call at :441), the compute side of the symmetric ring
+// (parallel/ring.py): two different blocks of L particles, the local i side
+// and the visiting j side, and every (i, j) pair once,
+//   a_i += m_j * d * k(d),  a_j -= m_i * d * k(d),  d = p_j - p_i.
+// It is K2's round kernel with separate i-side and j-side pointers, run on
+// K2's schedule without its two special cases: the i x j rectangle has no
+// diagonal and no pair twice, so all nt rounds k = 0..nt-1 are full, each
+// with nt blocks, and in each round every i tile and every j tile is owned
+// by one block. Its f64 accumulators and finish are K2's; it is bitwise
+// deterministic too. The TPU kernel's flattened (nt, nt) grid and its
+// per-round calls for small nt exist for the TPU's aliased accumulators and
+// are not carried over. At the ring's shard size (L = 51,200 on the galaxy
+// at P=3) a round is 200 blocks, 1.5 waves on 132 SMs: a smaller tile or a
+// split round is the lever for a later change.
+//
 // What bounds them: at N=1M the inputs are 12 MB and the output 8 MB, while
 // K1 evaluates N^2 = 1.1e12 pairs and K2 N^2/2 (K6, once per energy
-// sample, N^2 like K1). Each pair is one MUFU
+// sample, N^2 like K1; K9 L^2 per call on 40 L bytes). Each pair is one MUFU
 // reciprocal or rsqrt (an IEEE division in `exact`) and a dozen to two dozen
 // FP32 operations of the law itself, so FP32 issue bounds them, not memory:
 // chip_smoke.py computes each bound from the card's clock and the law's
-// operation count per pair (PERF.md). K2's pair also rotates five registers
-// by shuffle, which the law does not count.
+// operation count per pair (PERF.md). The pair of K2 and K9 also rotates
+// five registers by shuffle, which the law does not count.
 
 #include <cuda_runtime.h>
 
@@ -124,14 +140,17 @@ ordered_kernel(const float2* __restrict__ tgt, const float2* __restrict__ src,
         make_float2(static_cast<float>(ax), static_cast<float>(ay));
 }
 
-// One tournament round k of K2: block b pairs tile b (targets, i side) with
-// tile (b + k) mod nt (sources, j side). DIAG is round 0: the i side over
-// the block's own tile, every ordered pair, and no j side (it would count
-// each pair twice), as the JAX kernel does with its k != 0 mass factor.
+// One tournament round k: block b pairs i tile b (targets) with j tile
+// (b + k) mod nt (sources). K2 passes one particle block as both sides, K9
+// two blocks of the same length n. DIAG is K2's round 0: the i side over the
+// block's own tile, every ordered pair, and no j side (it would count each
+// pair twice), as the JAX kernel does with its k != 0 mass factor.
 template <int MODE, bool DIAG>
 __global__ void __launch_bounds__(kSymTile)
-allpairs_sym_round(const float2* __restrict__ pos,
-                   const float* __restrict__ mass,
+allpairs_sym_round(const float2* __restrict__ pos_i,
+                   const float* __restrict__ mass_i,
+                   const float2* __restrict__ pos_j,
+                   const float* __restrict__ mass_j,
                    double2* __restrict__ acc_i, double2* __restrict__ acc_j,
                    int n, int nt, int k, float soft2) {
   __shared__ float sh_x[kWarps][kSymTile];
@@ -145,16 +164,16 @@ allpairs_sym_round(const float2* __restrict__ pos,
   // A slot past n is an inert particle: mass 0 at the origin.
   const int i = blockIdx.x * kSymTile + threadIdx.x;
   const bool ilive = i < n;
-  const float2 pi = ilive ? pos[i] : make_float2(0.0f, 0.0f);
-  const float mi = ilive ? mass[i] : 0.0f;
+  const float2 pi = ilive ? pos_i[i] : make_float2(0.0f, 0.0f);
+  const float mi = ilive ? mass_i[i] : 0.0f;
 
   double ax = 0.0, ay = 0.0;
   for (int c = 0; c < kWarps; ++c) {
     const int j = tj * kSymTile + c * 32 + lane;
     const bool jlive = j < n;
-    const float2 pj = jlive ? pos[j] : make_float2(0.0f, 0.0f);
+    const float2 pj = jlive ? pos_j[j] : make_float2(0.0f, 0.0f);
     float xj = pj.x, yj = pj.y;
-    float mj = jlive ? mass[j] : 0.0f;
+    float mj = jlive ? mass_j[j] : 0.0f;
     float bx = 0.0f, by = 0.0f;  // j side of the source this lane holds
     float rx = 0.0f, ry = 0.0f;  // i side over this chunk
 #pragma unroll 4
@@ -207,6 +226,17 @@ allpairs_sym_round(const float2* __restrict__ pos,
   }
 }
 
+// K9's finish: the f64 accumulators (2n double2: i side, then j side)
+// rounded once to f32.
+__global__ void sym_pair_finish(const double2* __restrict__ acc,
+                                float2* __restrict__ out, int n2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n2) {
+    const double2 a = acc[i];
+    out[i] = make_float2(static_cast<float>(a.x), static_cast<float>(a.y));
+  }
+}
+
 __global__ void sym_finish(const double2* __restrict__ acc_i,
                            const double2* __restrict__ acc_j,
                            float2* __restrict__ out, int n) {
@@ -242,15 +272,37 @@ int launch_sym(cudaStream_t st, const void* pos, const void* mass, void* acc,
     const int blocks = (nt % 2 == 0 && k == nt / 2) ? nt / 2 : nt;
     if (k == 0)
       allpairs_sym_round<MODE, true><<<blocks, kSymTile, 0, st>>>(
-          p, m, acc_i, acc_j, n, nt, k, soft2);
+          p, m, p, m, acc_i, acc_j, n, nt, k, soft2);
     else
       allpairs_sym_round<MODE, false><<<blocks, kSymTile, 0, st>>>(
-          p, m, acc_i, acc_j, n, nt, k, soft2);
+          p, m, p, m, acc_i, acc_j, n, nt, k, soft2);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   sym_finish<<<(n + 255) / 256, 256, 0, st>>>(acc_i, acc_j,
                                                static_cast<float2*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_sym_pair(cudaStream_t st, const void* pos_i, const void* mass_i,
+                    const void* pos_j, const void* mass_j, void* acc,
+                    void* out, int n, float soft2) {
+  const float2* pi = static_cast<const float2*>(pos_i);
+  const float* mi = static_cast<const float*>(mass_i);
+  const float2* pj = static_cast<const float2*>(pos_j);
+  const float* mj = static_cast<const float*>(mass_j);
+  double2* acc_i = static_cast<double2*>(acc);
+  double2* acc_j = acc_i + n;
+  const int nt = (n + kSymTile - 1) / kSymTile;
+  for (int k = 0; k < nt; ++k) {
+    allpairs_sym_round<MODE, false><<<nt, kSymTile, 0, st>>>(
+        pi, mi, pj, mj, acc_i, acc_j, n, nt, k, soft2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  sym_pair_finish<<<(2 * n + 255) / 256, 256, 0, st>>>(
+      acc_i, static_cast<float2*>(out), 2 * n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,6 +364,40 @@ int allpairs_sym_launch(const void* pos, const void* mass, void* acc,
       return launch_sym<kNewtonClamp>(st, pos, mass, acc, out, n, softening2);
     case kApproxClamp:
       return launch_sym<kApproxClamp>(st, pos, mass, acc, out, n, softening2);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K9. pos_i, pos_j f32[N,2], mass_i, mass_j f32[N], acc f64[2,N,2] zeroed
+// by the caller (scratch: the i-side and j-side accumulators), out
+// f32[2,N,2] (acc_i, then acc_j); all contiguous on `device`. Launches nt + 1
+// kernels on `stream` (nt = ceil(N/256)) and returns the first CUDA error
+// (0 on success) without synchronising.
+int allpairs_sym_pair_launch(const void* pos_i, const void* mass_i,
+                             const void* pos_j, const void* mass_j, void* acc,
+                             void* out, int n, float softening2, int mode,
+                             int device, void* stream) {
+  if (n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kExact:
+      return launch_sym_pair<kExact>(st, pos_i, mass_i, pos_j, mass_j, acc,
+                                     out, n, softening2);
+    case kNewton:
+      return launch_sym_pair<kNewton>(st, pos_i, mass_i, pos_j, mass_j, acc,
+                                      out, n, softening2);
+    case kApprox:
+      return launch_sym_pair<kApprox>(st, pos_i, mass_i, pos_j, mass_j, acc,
+                                      out, n, softening2);
+    case kNewtonClamp:
+      return launch_sym_pair<kNewtonClamp>(st, pos_i, mass_i, pos_j, mass_j,
+                                           acc, out, n, softening2);
+    case kApproxClamp:
+      return launch_sym_pair<kApproxClamp>(st, pos_i, mass_i, pos_j, mass_j,
+                                           acc, out, n, softening2);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

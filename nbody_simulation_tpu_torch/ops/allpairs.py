@@ -1,11 +1,12 @@
-"""Exact all-pairs forces: the ordered sweep (K1) and the symmetric
-third-law sweep (K2).
+"""Exact all-pairs forces: the ordered sweep (K1), the symmetric
+third-law sweep (K2) and its cross-block form (K9).
 
-The port of ``nbody_simulation_tpu/ops/allpairs.py``. ``allpairs_accel``
-and ``allpairs_accel_sym`` keep the JAX signatures, checks and errors; a
-CUDA tensor launches the hand-written kernel of ``csrc/allpairs.cu``
-(``allpairs_cuda``, ``allpairs_sym_cuda``), a CPU tensor runs the plain
-version, and any other device raises. The plain versions always compute
+The port of ``nbody_simulation_tpu/ops/allpairs.py``. ``allpairs_accel``,
+``allpairs_accel_sym`` and ``allpairs_accel_sym_pair`` keep the JAX
+signatures, checks and errors; a CUDA tensor launches the hand-written
+kernel of ``csrc/allpairs.cu`` (``allpairs_cuda``, ``allpairs_sym_cuda``,
+``allpairs_sym_pair_cuda``), a CPU tensor runs the plain version, and any
+other device raises. The plain versions always compute
 ``exact``, as the JAX package's CPU (interpret) path does; ``rcp`` is then
 validated only.
 
@@ -17,9 +18,12 @@ any N.
 Non-finite positions. The symmetric law multiplies ``d · (m · k)`` after
 the mask has set ``k`` to 0, and NaN·0 is NaN: one NaN x-coordinate makes
 the x-component of every row NaN, while every y-component stays finite and
-the NaN particle's own y is 0. The ordered law in ``exact`` selects 0 for a
-masked pair instead, so every row stays finite and the NaN particle's row
-is 0. Both match the JAX package on the CPU (tests/test_torch_allpairs.py).
+the NaN particle's own y is 0. The cross-block law (K9) does the same on
+each side: one NaN x on the i side makes that row's x NaN and its y 0, and
+the x of every j-side row NaN with every y finite. The ordered law in
+``exact`` selects 0 for a masked pair instead, so every row stays finite and
+the NaN particle's row is 0. All match the JAX package on the CPU
+(tests/test_torch_allpairs.py, tests/test_torch_ring.py).
 """
 
 from __future__ import annotations
@@ -104,6 +108,17 @@ def allpairs_accel_sym_ref(pos: torch.Tensor, mass: torch.Tensor,
     return pair_sums(pos, pos, mass, _sym_term, softening2)
 
 
+def allpairs_accel_sym_pair_ref(pos_i: torch.Tensor, mass_i: torch.Tensor,
+                                pos_j: torch.Tensor, mass_j: torch.Tensor,
+                                softening2: float = 1e-3):
+    """K9's plain version: ``(acc_i, acc_j)``, f32 (L, 2) each, every pair
+    by the symmetric law. As in ``allpairs_accel_sym_ref``, the j side's
+    ``−d · (m_i · k(d))`` is bitwise ``(−d) · (m_i · k(−d))``, so each side
+    is the ordered sum of the symmetric term over the other side."""
+    return (pair_sums(pos_i, pos_j, mass_j, _sym_term, softening2),
+            pair_sums(pos_j, pos_i, mass_i, _sym_term, softening2))
+
+
 # -- the CUDA kernels ---------------------------------------------------------
 
 _lib = None
@@ -121,6 +136,10 @@ def _load_lib():
         lib.allpairs_sym_launch.restype = ctypes.c_int
         lib.allpairs_sym_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.allpairs_sym_pair_launch.restype = ctypes.c_int
+        lib.allpairs_sym_pair_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int]
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.potential_launch.restype = ctypes.c_int
         lib.potential_launch.argtypes = (
@@ -206,6 +225,37 @@ def allpairs_sym_cuda(pos: torch.Tensor, mass: torch.Tensor,
 allpairs_sym_cuda.launches = 0
 
 
+def allpairs_sym_pair_cuda(pos_i: torch.Tensor, mass_i: torch.Tensor,
+                           pos_j: torch.Tensor, mass_j: torch.Tensor,
+                           softening2: float = 1e-3, rcp: str = "newton"):
+    """Launch K9 (``csrc/allpairs.cu``): two blocks of L particles, f32
+    (L, 2) positions and f32 (L,) masses each, contiguous on one CUDA
+    device; returns ``(acc_i, acc_j)``. One call launches one kernel per
+    round (ceil(L/256) of them) plus a finishing one, and counts once in
+    ``allpairs_sym_pair_cuda.launches``. Anything else raises; there is no
+    fallback. The f64 scratch is (2, L, 2)."""
+    mode = check_rcp(rcp)
+    n = pos_i.shape[0]
+    check_cuda_inputs("allpairs_sym_pair_cuda",
+                      [(pos_i, (n, 2)), (mass_i, (n,)), (pos_j, (n, 2)),
+                       (mass_j, (n,))])
+    acc = torch.zeros((2, n, 2), dtype=torch.float64, device=pos_i.device)
+    out = torch.empty((2, n, 2), dtype=torch.float32, device=pos_i.device)
+    err = _load_lib().allpairs_sym_pair_launch(
+        pos_i.data_ptr(), mass_i.data_ptr(), pos_j.data_ptr(),
+        mass_j.data_ptr(), acc.data_ptr(), out.data_ptr(), n,
+        float(softening2), mode, pos_i.device.index or 0,
+        torch.cuda.current_stream(pos_i.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"allpairs_sym_pair kernel launch failed: CUDA "
+                           f"error {err} at L={n}, rcp={rcp}")
+    allpairs_sym_pair_cuda.launches += 1
+    return out[0], out[1]
+
+
+allpairs_sym_pair_cuda.launches = 0
+
+
 # -- the entry points ---------------------------------------------------------
 
 def allpairs_accel_sym(pos: torch.Tensor, mass: torch.Tensor,
@@ -231,6 +281,39 @@ def allpairs_accel_sym(pos: torch.Tensor, mass: torch.Tensor,
     if pos.device.type == "cpu":
         return allpairs_accel_sym_ref(pos, mass, softening2)
     raise ValueError(f"no all-pairs kernel for device {pos.device}")
+
+
+def allpairs_accel_sym_pair(pos_i: torch.Tensor, mass_i: torch.Tensor,
+                            pos_j: torch.Tensor, mass_j: torch.Tensor,
+                            softening2: float = 1e-3, tile: int = 1024,
+                            rcp: str = "newton", strips: int = 4):
+    """Third-law all-pairs between two blocks (K9): ``(acc_i, acc_j)``, the
+    acceleration of the i side due to every j-side particle and of the j
+    side due to every i-side particle, each unordered pair's kernel k(d)
+    evaluated once. The compute side of the symmetric ring
+    (``parallel.ring.ring_allpairs_accel_symring``).
+
+    Both sides hold the same L particles' worth; L must be a multiple of
+    ``min(tile, L)`` and ``tile`` of the clipped ``strips``, as in the JAX
+    package. Non-finite inputs: the module docstring."""
+    n = pos_i.shape[0]
+    if pos_j.shape[0] != n:
+        raise ValueError(f"both sides need the same length, got "
+                         f"{tuple(pos_i.shape)} and {tuple(pos_j.shape)}")
+    tile = min(tile, n)
+    if n % tile:
+        raise ValueError(f"N={n} not divisible by tile {tile}")
+    strips = max(1, min(strips, tile // 8))
+    if tile % strips:
+        raise ValueError(f"tile={tile} not divisible by strips {strips}")
+    check_rcp(rcp)
+    if pos_i.device.type == "cuda":
+        return allpairs_sym_pair_cuda(pos_i, mass_i, pos_j, mass_j,
+                                      softening2, rcp)
+    if pos_i.device.type == "cpu":
+        return allpairs_accel_sym_pair_ref(pos_i, mass_i, pos_j, mass_j,
+                                           softening2)
+    raise ValueError(f"no all-pairs kernel for device {pos_i.device}")
 
 
 def allpairs_accel(pos: torch.Tensor, mass: torch.Tensor,

@@ -130,7 +130,8 @@ def test_import_port_leaves_jax_unloaded():
         "import sys\n"
         "import nbody_simulation_tpu_torch, nbody_simulation_tpu_torch.run\n"
         "import nbody_simulation_tpu_torch.models, "
-        "nbody_simulation_tpu_torch.ops, nbody_simulation_tpu_torch.runtime\n"
+        "nbody_simulation_tpu_torch.ops, nbody_simulation_tpu_torch.runtime, "
+        "nbody_simulation_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nbody_simulation_tpu')]\n"
         "print(bad)\n"
