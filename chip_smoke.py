@@ -36,14 +36,17 @@ version at the main paths' shapes:
   card runs the sharded schedule and its kernels; no interconnect): the
   cross-shard symmetric kernel (K9) in all five rcp modes on 4,096 sampled
   rows of each side at both shard shapes below, bitwise on two calls, and
-  its NaN pattern; the galaxy at P=3 (the symmetric ring: K2, then one K9
-  round per shard) held to single-device K2, ``make_sharded_step`` with
-  its diagnostics, frame (pixel for pixel the single-device dense and
-  sparse frames) and exact energy, one traced step; the galaxy at P=4 (the
-  ordered ring: K2 and K1) and ``bh_sharded_accel`` there against
-  ``bh_accel``; ``ring_allpairs_accel_diff`` at P=3 against f64 autograd;
-  the 1,048,576-body disc at P=8 (K=4 rounds with the half round), its
-  ring held on sampled rows and two steps timed.
+  its NaN pattern, and K2 alone at L=51,200 (the ring's self stage); for
+  each K2 and K9 shape, its launches per call, rounds and blocks per launch
+  and the round kernel's resident blocks per SM; the galaxy at P=3 (the
+  symmetric ring: K2, then one K9 round per shard) held to single-device
+  K2, ``make_sharded_step`` with its diagnostics, frame (pixel for pixel
+  the single-device dense and sparse frames) and exact energy, one traced
+  step; the galaxy at P=4 (the ordered ring: K2 and K1) and
+  ``bh_sharded_accel`` there against ``bh_accel``;
+  ``ring_allpairs_accel_diff`` at P=3 against f64 autograd; the
+  1,048,576-body disc at P=8 (K=4 rounds with the half round), its ring
+  held on sampled rows and two steps timed.
 
 Then it drives the main paths through the CLI: the Barnes-Hut galaxy
 (``python -m nbody_simulation_tpu_torch.run`` defaults) for 64 steps, the
@@ -180,7 +183,8 @@ def sass_per_pair(lib: Path, function: str) -> tuple[float, float]:
     computes ‖d‖₁ = |dx| + |dy| once, as one FADD with two absolute-value
     operands, so those count the loop's pairs; the hot loop is the
     innermost loop (a backward branch with no other loop inside) holding
-    the most pairs."""
+    the most pairs, less any warp-uniform slow path inside it (the code a
+    branch after a VOTE.ALL jumps over)."""
     text = subprocess.run([_cuobjdump(), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
@@ -218,7 +222,20 @@ def sass_per_pair(lib: Path, function: str) -> tuple[float, float]:
     pair_op = re.compile(r"FADD\S*\s+R\d+,\s*\|R\d+\|,\s*\|R\d+\|")
     best = None
     for a, b in inner:
-        loop = instrs[a:b + 1]
+        # A warp-uniform slow path inside the loop (VOTE.ALL, then a branch
+        # over it to the fast path) is left out: the count is that of the
+        # path the warp takes when the vote passes.
+        skip = set()
+        for k in range(a, b):
+            vote = re.match(r"VOTE\.ALL\s+(P\d+)", instrs[k])
+            jump = vote and re.match(
+                rf"@{vote.group(1)}\s+BRA\S*\s+(?:`\((\.L_x_\d+)\)|"
+                r"(0x[0-9a-f]+))", instrs[k + 1])
+            if jump:
+                label = jump.group(1) or f"0x{int(jump.group(2), 16):x}"
+                if label in where and k + 1 < where[label] <= b:
+                    skip.update(range(k + 2, where[label]))
+        loop = [instrs[i] for i in range(a, b + 1) if i not in skip]
         pairs = sum(bool(pair_op.search(s)) for s in loop)
         if pairs and (best is None or pairs > best[2]):
             best = (len(loop), sum("MUFU." in s for s in loop), pairs)
@@ -316,6 +333,22 @@ def main() -> int:
                 f"{t_bytes * 1e3:.4f} ms; built hot loop {built}")
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes", note)
+
+    def sym_plan(label: str, n: int, rcp: str, self_pairs: bool) -> None:
+        """Log the launches of one K2 (``self_pairs``) or K9 call on n
+        particles: round launches (each followed by a fold), rounds and
+        blocks per launch, and the round kernel's resident blocks per SM as
+        the CUDA runtime gives them."""
+        plan = ap.sym_launch_plan(n, dev, rcp, self_pairs)
+        blocks = plan.schedule.launches[:, 1]
+        resident = plan.blocks_per_sm * sms
+        log(f"{label} (n={n}, rcp={rcp}): {len(blocks)} launches of the "
+            f"round kernel per call, each followed by a fold, then one "
+            f"finish; {plan.rounds_per_launch} rounds and {blocks.min()} to "
+            f"{blocks.max()} blocks of {plan.threads_per_block} threads per "
+            f"launch; {plan.blocks_per_sm} resident blocks per SM "
+            f"({resident} on the card: {blocks.max() / resident:.2f} waves "
+            f"per launch)")
 
     def timed_ms(fn, reps: int, warmup: int = 2) -> float:
         for _ in range(warmup):
@@ -1279,12 +1312,14 @@ def main() -> int:
     gal_bytes = 12.0 * n_gal + 8.0 * n_gal
     mode = RCP_MODES.index(main_ap)
     sym_bound = bound("sym", main_ap, n_gal * n_gal / 2.0, gal_bytes,
-                      "allpairs", f"allpairs_sym_roundILi{mode}ELb0E")
+                      "allpairs", f"allpairs_sym_roundsILi{mode}ELb0E")
     ord_bound = bound("mono", main_ap, float(n_gal) * n_gal, gal_bytes,
                       "allpairs", f"ordered_kernelILi{mode}ELb0E")
     pot_bound = bound("pot", "exact", float(n_gal) * n_gal,
                       12.0 * n_gal + 4.0 * n_gal, "allpairs",
                       "ordered_kernelILi0ELb1E")
+    sym_plan("K2 on the galaxy", n_gal, main_ap, True)
+    sym_plan("K2 at N=1M", N_BIG, "newton", True)
     for name, ms, pl_ms, bd in (
             ("allpairs_sym", ms_sym, ms_sym_plain, sym_bound),
             ("allpairs", ms_ord, ms_ord_plain, ord_bound),
@@ -1305,9 +1340,9 @@ def main() -> int:
             f"{float(N_BIG) ** 2 / (big[label] * 1e-3):.4e} pairs/s (N^2/t)")
     for label, form, rcp, fn_name, pairs in (
             ("allpairs_sym newton", "sym", "newton",
-             "allpairs_sym_roundILi1ELb0E", 0.5),
+             "allpairs_sym_roundsILi1ELb0E", 0.5),
             ("allpairs_sym approx+clamp", "sym", "approx+clamp",
-             "allpairs_sym_roundILi4ELb0E", 0.5),
+             "allpairs_sym_roundsILi4ELb0E", 0.5),
             ("allpairs newton", "mono", "newton", "ordered_kernelILi1ELb0E",
              1.0)):
         bd = bound(form, rcp, pairs * N_BIG * N_BIG, 20.0 * N_BIG,
@@ -1463,14 +1498,16 @@ def main() -> int:
     events = prof.key_averages()
     dev_total = sum(dev_us(e) for e in events) / 2e3
     rounds = sum(dev_us(e) for e in events
-                 if "allpairs_sym_round" in e.key) / 2e3
+                 if "allpairs_sym_rounds" in e.key or "sym_fold" in e.key
+                 ) / 2e3
     n_ops = sum(1 for e in prof.events()
                 if str(getattr(e, "device_type", "")).endswith("CUDA")) / 2
     if dev_total <= 0 or rounds <= 0:
         raise RuntimeError("P=3 step trace recorded no device time")
     log(f"P=3 step trace (2 steps): device time {dev_total:.3f} ms per step "
-        f"in {n_ops:.0f} device operations; K2 and K9 rounds {rounds:.3f} ms "
-        f"({rounds / dev_total:.0%}), the rest (finishes, shard copies, "
+        f"in {n_ops:.0f} device operations; K2 and K9 rounds and folds "
+        f"{rounds:.3f} ms ({rounds / dev_total:.0%}), the rest (finishes, "
+        f"shard copies, "
         f"adds, integration) {dev_total - rounds:.3f} ms")
 
     # K9 alone at the P=3 galaxy's shard shape: shard 0 against shard 1.
@@ -1483,10 +1520,19 @@ def main() -> int:
     ms_k9 = timed_ms(lambda: ap.allpairs_accel_sym_pair(
         pi, mi, pj, mj, SOFTENING2, rcp=main_ap), reps=20)
     k9_bound = bound("sym", main_ap, float(l3) * l3, 40.0 * l3, "allpairs",
-                     f"allpairs_sym_roundILi{mode}ELb0E")
+                     f"allpairs_sym_roundsILi{mode}ELb0E")
     log(f"K9 at L={l3}: kernel {ms_k9:.4f} ms, plain {ms_k9_plain:.3f} ms "
         f"(once), bound {k9_bound[0]:.4f} ms by {k9_bound[1]} "
         f"({k9_bound[2]})")
+    sym_plan("K9 at the P=3 shard", l3, main_ap, False)
+    # K2 at the same shard shape: the symmetric ring's self stage.
+    ms_k2_l3 = timed_ms(lambda: ap.allpairs_accel_sym(
+        pi, mi, SOFTENING2, rcp=main_ap), reps=20)
+    k2_l3_bound = bound("sym", main_ap, float(l3) * l3 / 2.0, 20.0 * l3,
+                        "allpairs", f"allpairs_sym_roundsILi{mode}ELb0E")
+    log(f"K2 at L={l3} (the P=3 ring's self stage): kernel {ms_k2_l3:.4f} ms, "
+        f"bound {k2_l3_bound[0]:.4f} ms by {k2_l3_bound[1]}")
+    sym_plan("K2 at the P=3 shard", l3, main_ap, True)
 
     # K9's NaN pattern, one NaN x on the i side. exact: that row's x NaN and
     # y 0, every j row's x NaN and y finite. +clamp: max(NaN, clamp) is NaN,
@@ -1609,9 +1655,11 @@ def main() -> int:
     ms_k9_8 = timed_ms(lambda: ap.allpairs_accel_sym_pair(
         p8i, m8i, p8j, m8j, SOFTENING2, rcp=main_ap), reps=3)
     k9_bound8 = bound("sym", main_ap, float(l8) * l8, 40.0 * l8, "allpairs",
-                      f"allpairs_sym_roundILi{mode}ELb0E")
+                      f"allpairs_sym_roundsILi{mode}ELb0E")
     log(f"K9 at L={l8}: kernel {ms_k9_8:.4f} ms, bound {k9_bound8[0]:.4f} ms "
         f"by {k9_bound8[1]}")
+    sym_plan("K9 at the P=8 shard", l8, main_ap, False)
+    sym_plan("K2 at the P=8 shard", l8, main_ap, True)
     del st8, disc8, p8i, m8i, p8j, m8j
     log(f"phase multi-device: {time.perf_counter() - t_phase:.1f} s")
 

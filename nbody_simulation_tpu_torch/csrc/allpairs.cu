@@ -26,22 +26,38 @@
 //   a_i += m_j * d * k(d),  a_j -= m_i * d * k(d),  d = p_j - p_i.
 // The TPU kernel read-modify-writes aliased accumulators over a sequential
 // grid. On a GPU the blocks run at once, so the j side would race. The
-// schedule here is the same tournament, one launch per round: the particles
-// are cut into nt tiles of 256, and round k pairs tile b with tile
-// (b + k) mod nt, one block each (round 0 is the diagonal, i side only;
-// for even nt, round nt/2 runs only b < nt/2, since its other half repeats
-// the first). Inside a round every tile is an i tile once and a j tile once,
-// so no two blocks touch the same accumulator. Rounds follow one another
-// on the stream. Inside a block, warp w owns 32 targets and takes the j
-// tile in chunks of 32: lane l starts with source l of the chunk, and after
-// each pair the sources rotate one lane down by shuffle, carrying their
-// j-side sums with them. After 32 steps every lane has met every source and
-// each source is home with its sum over the warp's 32 targets. The warps'
-// sums are then added in warp order through shared memory. Every sum has a
-// fixed order, so two calls on the same input are bitwise equal; there is
-// no float atomic anywhere. This was chosen over per-tile partials (N^2/T
-// floats of scratch: gigabytes at N=1M) and over float atomicAdd (order of
-// arrival changes the bits from run to run).
+// schedule here is the same tournament: the particles are cut into nt tiles
+// of 256, and round k pairs tile b with tile (b + k) mod nt, one block each
+// (round 0 is the diagonal, i side only; for even nt, round nt/2 runs only
+// b < nt/2, since its other half repeats the first). One launch runs R
+// consecutive rounds, so R * nt blocks (fewer in K2's half round): a round
+// alone is 200 blocks at the ring's shard size, too few to fill 132 SMs.
+// Block (round k0 + s, tile b) writes its i-side f64 sums to slot s of the
+// i side at tile b and its j-side sums to slot s of the j side at tile
+// (b + k) mod nt; inside a round every tile is an i tile once and a j tile
+// once, so no two blocks of a launch share a slot. A fold after the launch
+// adds slot 0, 1, ... R-1 into the f64 accumulators, the i side with + and
+// the j side with -, so each accumulator takes its partials in round order.
+// The schedule is a table of (round, i tile, j tile, slot), one row per
+// block, built in Python (ops/allpairs.py:sym_schedule, tested on the CPU)
+// and read by blockIdx.x; R is chosen there so that a launch holds a few
+// waves of the kernel's resident blocks, within a bound on the slots'
+// bytes. Inside a block each lane holds kTargets i targets, and a group of
+// kGroup = 32 / kTargets lanes takes the j tile in chunks of kGroup sources:
+// lane q starts with source q of the chunk, and after each step the sources
+// rotate one lane down the group by shuffle, carrying their j-side sums with
+// them. After kGroup steps every target has met every source of the chunk
+// and each source is home with its sum over the group's 32 targets. So the
+// three source shuffles and the two j-sum shuffles of a step serve kTargets
+// pairs, and the kTargets reciprocal chains of a step are independent. The
+// 8 groups' sums per source are then added in group order through shared
+// memory. Every sum has a fixed order, so two calls on the same input are
+// bitwise equal; there is no float atomic anywhere. This was chosen over
+// float atomicAdd (order of arrival changes the bits from run to run); the
+// slots bound the per-tile partials to R rounds' worth, where all of them
+// would be N^2/T floats (gigabytes at N=1M). With kTargets = 1 the in-block
+// arithmetic is the one-launch-per-round kernel this replaced, and the
+// result is bitwise that kernel's (tools/sym_kernel_ab.py).
 //
 // Summation (the sweep kernel's lesson: a plain running sum behind a heavy
 // term lost 5.4e-5 of sum|c| on the galaxy, in the sweep kernel's first
@@ -60,12 +76,10 @@
 // K2's schedule without its two special cases: the i x j rectangle has no
 // diagonal and no pair twice, so all nt rounds k = 0..nt-1 are full, each
 // with nt blocks, and in each round every i tile and every j tile is owned
-// by one block. Its f64 accumulators and finish are K2's; it is bitwise
-// deterministic too. The TPU kernel's flattened (nt, nt) grid and its
-// per-round calls for small nt exist for the TPU's aliased accumulators and
-// are not carried over. At the ring's shard size (L = 51,200 on the galaxy
-// at P=3) a round is 200 blocks, 1.5 waves on 132 SMs: a smaller tile or a
-// split round is the lever for a later change.
+// by one block. Its slots, fold and f64 accumulators are K2's; it is
+// bitwise deterministic too. The TPU kernel's flattened (nt, nt) grid and
+// its per-round calls for small nt exist for the TPU's aliased accumulators
+// and are not carried over.
 //
 // What bounds them: at N=1M the inputs are 12 MB and the output 8 MB, while
 // K1 evaluates N^2 = 1.1e12 pairs and K2 N^2/2 (K6, once per energy
@@ -73,8 +87,10 @@
 // reciprocal or rsqrt (an IEEE division in `exact`) and a dozen to two dozen
 // FP32 operations of the law itself, so FP32 issue bounds them, not memory:
 // chip_smoke.py computes each bound from the card's clock and the law's
-// operation count per pair (PERF.md). The pair of K2 and K9 also rotates
-// five registers by shuffle, which the law does not count.
+// operation count per pair (PERF.md). A step of K2 and K9 also rotates five
+// registers by shuffle, 5 / kTargets per pair, which the law does not
+// count, and the slots move 32 bytes per particle and round through memory
+// (written by the blocks, read by the fold).
 
 #include <cuda_runtime.h>
 
@@ -88,8 +104,17 @@ constexpr int kThreads = 256;  // K1, K6: targets per block
 constexpr int kTile = 1024;    // K1, K6: sources staged per pass
 constexpr int kRun = 32;       // K1, K6: terms per f32 run sum (divides kTile)
 
-constexpr int kWarps = 8;               // K2: warps per block
-constexpr int kSymTile = 32 * kWarps;   // K2: particles per tile
+// K2, K9. kTargets is the number of i targets each lane holds: a group of
+// kGroup = 32 / kTargets lanes rotates a chunk of kGroup sources, so each
+// source's j-side run sum collects kGroup * kTargets = 32 terms per chunk,
+// and each target's i-side run sum is flushed to f64 after kTargets chunks
+// (32 terms). Every tile of 256 targets is cut into kParts parts of 32,
+// whatever kTargets is, so a source's j side has kParts partials per tile.
+constexpr int kSymTile = 256;                     // particles per tile
+constexpr int kTargets = 4;                       // i targets per lane
+constexpr int kGroup = 32 / kTargets;             // lanes per source chunk
+constexpr int kSymThreads = kSymTile / kTargets;  // threads per block
+constexpr int kParts = kSymTile / 32;             // j-side partials per source
 
 // The ordered sweep. POT: K6, the potential into out f32[Ni]; else K1, the
 // force in rcp mode MODE into out f32[Ni,2].
@@ -140,90 +165,181 @@ ordered_kernel(const float2* __restrict__ tgt, const float2* __restrict__ src,
         make_float2(static_cast<float>(ax), static_cast<float>(ay));
 }
 
-// One tournament round k: block b pairs i tile b (targets) with j tile
-// (b + k) mod nt (sources). K2 passes one particle block as both sides, K9
-// two blocks of the same length n. DIAG is K2's round 0: the i side over the
-// block's own tile, every ordered pair, and no j side (it would count each
-// pair twice), as the JAX kernel does with its k != 0 mass factor.
+// One block's share of a round: i tile ti (targets) against j tile tj
+// (sources). DIAG is K2's round 0: the i side over the block's own tile,
+// every ordered pair, and no j side (it would count each pair twice), as the
+// JAX kernel does with its k != 0 mass factor. Writes the block's i-side
+// sums, f64, to out_i[p] for the tile's particles p, and (not DIAG) its
+// j-side sums, before the sign, to out_j[p] for the j tile's particles.
 template <int MODE, bool DIAG>
-__global__ void __launch_bounds__(kSymTile)
-allpairs_sym_round(const float2* __restrict__ pos_i,
-                   const float* __restrict__ mass_i,
-                   const float2* __restrict__ pos_j,
-                   const float* __restrict__ mass_j,
-                   double2* __restrict__ acc_i, double2* __restrict__ acc_j,
-                   int n, int nt, int k, float soft2) {
-  __shared__ float sh_x[kWarps][kSymTile];
-  __shared__ float sh_y[kWarps][kSymTile];
+__device__ __forceinline__ void sym_block(
+    const float2* __restrict__ pos_i, const float* __restrict__ mass_i,
+    const float2* __restrict__ pos_j, const float* __restrict__ mass_j,
+    int ti, int tj, int n, float soft2, float (*sh_x)[kSymTile],
+    float (*sh_y)[kSymTile], double2* __restrict__ out_i,
+    double2* __restrict__ out_j) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int next = (lane + 1) & 31;
-  int tj = blockIdx.x + k;
-  if (tj >= nt) tj -= nt;
+  const int q = lane % kGroup;  // lane within its group
+  // The part of the tile this group's targets are: lane q holds targets
+  // part * 32 + t * kGroup + q, t < kTargets.
+  const int part = (threadIdx.x >> 5) * kTargets + lane / kGroup;
+  const int base = ti * kSymTile + part * 32 + q;
 
   // A slot past n is an inert particle: mass 0 at the origin.
-  const int i = blockIdx.x * kSymTile + threadIdx.x;
-  const bool ilive = i < n;
-  const float2 pi = ilive ? pos_i[i] : make_float2(0.0f, 0.0f);
-  const float mi = ilive ? mass_i[i] : 0.0f;
-
-  double ax = 0.0, ay = 0.0;
-  for (int c = 0; c < kWarps; ++c) {
-    const int j = tj * kSymTile + c * 32 + lane;
+  float xi[kTargets], yi[kTargets], mi[kTargets], rx[kTargets], ry[kTargets];
+  double ax[kTargets], ay[kTargets];
+#pragma unroll
+  for (int t = 0; t < kTargets; ++t) {
+    const int i = base + t * kGroup;
+    const bool live = i < n;
+    const float2 p = live ? pos_i[i] : make_float2(0.0f, 0.0f);
+    xi[t] = p.x;
+    yi[t] = p.y;
+    mi[t] = live ? mass_i[i] : 0.0f;
+    rx[t] = ry[t] = 0.0f;  // i side over the current kTargets chunks
+    ax[t] = ay[t] = 0.0;
+  }
+  for (int c = 0; c < kSymTile / kGroup; ++c) {
+    const int j = tj * kSymTile + c * kGroup + q;
     const bool jlive = j < n;
     const float2 pj = jlive ? pos_j[j] : make_float2(0.0f, 0.0f);
     float xj = pj.x, yj = pj.y;
     float mj = jlive ? mass_j[j] : 0.0f;
     float bx = 0.0f, by = 0.0f;  // j side of the source this lane holds
-    float rx = 0.0f, ry = 0.0f;  // i side over this chunk
-#pragma unroll 4
-    for (int r = 0; r < 32; ++r) {
-      const float dx = __fsub_rn(xj, pi.x);
-      const float dy = __fsub_rn(yj, pi.y);
-      const float kr = sym_r<MODE>(dx, dy, soft2);
-      const float wi = __fmul_rn(mj, kr);
-      rx = __fadd_rn(rx, __fmul_rn(dx, wi));
-      ry = __fadd_rn(ry, __fmul_rn(dy, wi));
-      if (!DIAG) {
-        const float wj = __fmul_rn(mi, kr);
-        bx = __fadd_rn(bx, __fmul_rn(dx, wj));
-        by = __fadd_rn(by, __fmul_rn(dy, wj));
-        bx = __shfl_sync(0xffffffffu, bx, next);
-        by = __shfl_sync(0xffffffffu, by, next);
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      float dx[kTargets], dy[kTargets], sl[kTargets], den[kTargets];
+      float rc[kTargets] = {};
+      bool in_range = true;
+#pragma unroll
+      for (int t = 0; t < kTargets; ++t) {
+        dx[t] = __fsub_rn(xj, xi[t]);
+        dy[t] = __fsub_rn(yj, yi[t]);
+        den[t] = sym_den<MODE>(dx[t], dy[t], soft2, sl[t]);
+        in_range = in_range && rcp_in_range(den[t]);
       }
-      xj = __shfl_sync(0xffffffffu, xj, next);
-      yj = __shfl_sync(0xffffffffu, yj, next);
-      mj = __shfl_sync(0xffffffffu, mj, next);
+      // The reciprocals of the step's kTargets pairs: bitwise rcp_approx,
+      // without its range fix-up where the whole warp is inside the range
+      // (pair_law.cuh); the warp takes one branch or the other.
+      if (MODE != kExact) {
+        if (__all_sync(0xffffffffu, in_range)) {
+#pragma unroll
+          for (int t = 0; t < kTargets; ++t) rc[t] = rcp_approx_ftz(den[t]);
+        } else {
+#pragma unroll
+          for (int t = 0; t < kTargets; ++t) rc[t] = rcp_approx(den[t]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kTargets; ++t) {
+        const float kr = sym_k<MODE>(sl[t], den[t], rc[t]);
+        const float wi = __fmul_rn(mj, kr);
+        rx[t] = __fadd_rn(rx[t], __fmul_rn(dx[t], wi));
+        ry[t] = __fadd_rn(ry[t], __fmul_rn(dy[t], wi));
+        if (!DIAG) {
+          const float wj = __fmul_rn(mi[t], kr);
+          bx = __fadd_rn(bx, __fmul_rn(dx[t], wj));
+          by = __fadd_rn(by, __fmul_rn(dy[t], wj));
+        }
+      }
+      // The sources, with their j-side sums, move one lane down the group.
+      if (!DIAG) {
+        bx = __shfl_sync(0xffffffffu, bx, q + 1, kGroup);
+        by = __shfl_sync(0xffffffffu, by, q + 1, kGroup);
+      }
+      xj = __shfl_sync(0xffffffffu, xj, q + 1, kGroup);
+      yj = __shfl_sync(0xffffffffu, yj, q + 1, kGroup);
+      mj = __shfl_sync(0xffffffffu, mj, q + 1, kGroup);
     }
-    ax = __dadd_rn(ax, static_cast<double>(rx));
-    ay = __dadd_rn(ay, static_cast<double>(ry));
-    if (!DIAG) {  // 32 rotations: source c*32 + lane is back in this lane
-      sh_x[warp][c * 32 + lane] = bx;
-      sh_y[warp][c * 32 + lane] = by;
+    if (c % kTargets == kTargets - 1) {  // 32 terms in each i-side run
+#pragma unroll
+      for (int t = 0; t < kTargets; ++t) {
+        ax[t] = __dadd_rn(ax[t], static_cast<double>(rx[t]));
+        ay[t] = __dadd_rn(ay[t], static_cast<double>(ry[t]));
+        rx[t] = ry[t] = 0.0f;
+      }
+    }
+    if (!DIAG) {  // kGroup rotations: source c*kGroup + q is back home
+      sh_x[part][c * kGroup + q] = bx;
+      sh_y[part][c * kGroup + q] = by;
     }
   }
-  if (ilive) {
-    double2 a = acc_i[i];
-    a.x = __dadd_rn(a.x, ax);
-    a.y = __dadd_rn(a.y, ay);
-    acc_i[i] = a;
-  }
+#pragma unroll
+  for (int t = 0; t < kTargets; ++t)
+    out_i[base + t * kGroup] = make_double2(ax[t], ay[t]);
   if (!DIAG) {
     __syncthreads();
-    const int jt = tj * kSymTile + threadIdx.x;
-    if (jt < n) {
+    for (int s = threadIdx.x; s < kSymTile; s += kSymThreads) {
       double sx = 0.0, sy = 0.0;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        sx = __dadd_rn(sx, static_cast<double>(sh_x[w][threadIdx.x]));
-        sy = __dadd_rn(sy, static_cast<double>(sh_y[w][threadIdx.x]));
+      for (int w = 0; w < kParts; ++w) {
+        sx = __dadd_rn(sx, static_cast<double>(sh_x[w][s]));
+        sy = __dadd_rn(sy, static_cast<double>(sh_y[w][s]));
       }
-      double2 a = acc_j[jt];
-      a.x = __dsub_rn(a.x, sx);
-      a.y = __dsub_rn(a.y, sy);
-      acc_j[jt] = a;
+      out_j[tj * kSymTile + s] = make_double2(sx, sy);
     }
   }
+}
+
+// Several tournament rounds in one launch. Block b runs row b of `sched`,
+// (round k, i tile, j tile, slot s), and writes its i-side sums to slot s
+// of slot_i and its j-side sums to slot s of slot_j; each slot is n_pad
+// double2 long. The schedule gives no two blocks of a launch the same i or
+// j slot entry. SELF is K2 (one particle block on both sides), whose round 0
+// is the diagonal; else K9 (two blocks, no diagonal).
+template <int MODE, bool SELF>
+__global__ void __launch_bounds__(kSymThreads)
+allpairs_sym_rounds(const float2* __restrict__ pos_i,
+                    const float* __restrict__ mass_i,
+                    const float2* __restrict__ pos_j,
+                    const float* __restrict__ mass_j,
+                    const int4* __restrict__ sched,
+                    double2* __restrict__ slot_i,
+                    double2* __restrict__ slot_j, int n, int n_pad,
+                    float soft2) {
+  __shared__ float sh_x[kParts][kSymTile];
+  __shared__ float sh_y[kParts][kSymTile];
+  const int4 e = sched[blockIdx.x];
+  const size_t off = static_cast<size_t>(e.w) * n_pad;
+  if (SELF && e.x == 0)
+    sym_block<MODE, true>(pos_i, mass_i, pos_j, mass_j, e.y, e.z, n, soft2,
+                          sh_x, sh_y, slot_i + off, nullptr);
+  else
+    sym_block<MODE, false>(pos_i, mass_i, pos_j, mass_j, e.y, e.z, n, soft2,
+                           sh_x, sh_y, slot_i + off, slot_j + off);
+}
+
+// The fold after each launch: particle p of tile t adds the launch's slots
+// into the f64 accumulators in round order, the i side with + and the j side
+// with -, where fold[s * nt + t] says which sides slot s wrote for tile t
+// (bit 0: i, bit 1: j).
+__global__ void sym_fold(const double2* __restrict__ slot_i,
+                         const double2* __restrict__ slot_j,
+                         const unsigned char* __restrict__ fold,
+                         double2* __restrict__ acc_i,
+                         double2* __restrict__ acc_j, int n, int n_pad,
+                         int nt, int rounds) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int t = i / kSymTile;
+  double2 a = acc_i[i];
+  double2 b = acc_j[i];
+  for (int s = 0; s < rounds; ++s) {
+    const unsigned char f = fold[s * nt + t];
+    const size_t at = static_cast<size_t>(s) * n_pad + i;
+    if (f & 1) {
+      const double2 p = slot_i[at];
+      a.x = __dadd_rn(a.x, p.x);
+      a.y = __dadd_rn(a.y, p.y);
+    }
+    if (f & 2) {
+      const double2 p = slot_j[at];
+      b.x = __dsub_rn(b.x, p.x);
+      b.y = __dsub_rn(b.y, p.y);
+    }
+  }
+  acc_i[i] = a;
+  acc_j[i] = b;
 }
 
 // K9's finish: the f64 accumulators (2n double2: i side, then j side)
@@ -260,50 +376,86 @@ int launch_ordered(cudaStream_t st, const void* tgt, const void* src,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE>
-int launch_sym(cudaStream_t st, const void* pos, const void* mass, void* acc,
-               void* out, int n, float soft2) {
-  const float2* p = static_cast<const float2*>(pos);
-  const float* m = static_cast<const float*>(mass);
+// The launches of one K2 (SELF) or K9 call. `launches` is a host array of
+// n_launches rows (first row of `sched`, blocks, first round, rounds), each
+// one launch of allpairs_sym_rounds and its fold; `slots` holds 2 * r_max
+// slots of n_pad double2 (the i side's, then the j side's).
+template <int MODE, bool SELF>
+int launch_rounds(cudaStream_t st, const void* pos_i, const void* mass_i,
+                  const void* pos_j, const void* mass_j, const void* sched,
+                  const void* fold, const int* launches, int n_launches,
+                  void* slots, int r_max, void* acc, void* out, int n,
+                  float soft2) {
+  const int nt = (n + kSymTile - 1) / kSymTile;
+  const int n_pad = nt * kSymTile;
   double2* acc_i = static_cast<double2*>(acc);
   double2* acc_j = acc_i + n;
-  const int nt = (n + kSymTile - 1) / kSymTile;
-  for (int k = 0; k <= nt / 2; ++k) {
-    const int blocks = (nt % 2 == 0 && k == nt / 2) ? nt / 2 : nt;
-    if (k == 0)
-      allpairs_sym_round<MODE, true><<<blocks, kSymTile, 0, st>>>(
-          p, m, p, m, acc_i, acc_j, n, nt, k, soft2);
-    else
-      allpairs_sym_round<MODE, false><<<blocks, kSymTile, 0, st>>>(
-          p, m, p, m, acc_i, acc_j, n, nt, k, soft2);
-    const cudaError_t err = cudaGetLastError();
+  double2* slot_i = static_cast<double2*>(slots);
+  double2* slot_j = slot_i + static_cast<size_t>(r_max) * n_pad;
+  const int4* rows = static_cast<const int4*>(sched);
+  const unsigned char* bits = static_cast<const unsigned char*>(fold);
+  for (int l = 0; l < n_launches; ++l) {
+    const int* at = launches + 4 * l;
+    allpairs_sym_rounds<MODE, SELF><<<at[1], kSymThreads, 0, st>>>(
+        static_cast<const float2*>(pos_i), static_cast<const float*>(mass_i),
+        static_cast<const float2*>(pos_j), static_cast<const float*>(mass_j),
+        rows + at[0], slot_i, slot_j, n, n_pad, soft2);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sym_fold<<<(n + 255) / 256, 256, 0, st>>>(
+        slot_i, slot_j, bits + static_cast<size_t>(at[2]) * nt, acc_i, acc_j,
+        n, n_pad, nt, at[3]);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sym_finish<<<(n + 255) / 256, 256, 0, st>>>(acc_i, acc_j,
-                                               static_cast<float2*>(out), n);
+  if (SELF)
+    sym_finish<<<(n + 255) / 256, 256, 0, st>>>(acc_i, acc_j,
+                                                 static_cast<float2*>(out), n);
+  else
+    sym_pair_finish<<<(2 * n + 255) / 256, 256, 0, st>>>(
+        acc_i, static_cast<float2*>(out), 2 * n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE>
-int launch_sym_pair(cudaStream_t st, const void* pos_i, const void* mass_i,
-                    const void* pos_j, const void* mass_j, void* acc,
-                    void* out, int n, float soft2) {
-  const float2* pi = static_cast<const float2*>(pos_i);
-  const float* mi = static_cast<const float*>(mass_i);
-  const float2* pj = static_cast<const float2*>(pos_j);
-  const float* mj = static_cast<const float*>(mass_j);
-  double2* acc_i = static_cast<double2*>(acc);
-  double2* acc_j = acc_i + n;
-  const int nt = (n + kSymTile - 1) / kSymTile;
-  for (int k = 0; k < nt; ++k) {
-    allpairs_sym_round<MODE, false><<<nt, kSymTile, 0, st>>>(
-        pi, mi, pj, mj, acc_i, acc_j, n, nt, k, soft2);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+template <bool SELF>
+int sym_call(int mode, cudaStream_t st, const void* pos_i,
+             const void* mass_i, const void* pos_j, const void* mass_j,
+             const void* sched, const void* fold, const int* launches,
+             int n_launches, void* slots, int r_max, void* acc, void* out,
+             int n, float soft2) {
+#define SYM_CASE(M)                                                         \
+  case M:                                                                   \
+    return launch_rounds<M, SELF>(st, pos_i, mass_i, pos_j, mass_j, sched,  \
+                                  fold, launches, n_launches, slots, r_max, \
+                                  acc, out, n, soft2);
+  switch (mode) {
+    SYM_CASE(kExact)
+    SYM_CASE(kNewton)
+    SYM_CASE(kApprox)
+    SYM_CASE(kNewtonClamp)
+    SYM_CASE(kApproxClamp)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  sym_pair_finish<<<(2 * n + 255) / 256, 256, 0, st>>>(
-      acc_i, static_cast<float2*>(out), 2 * n);
-  return static_cast<int>(cudaGetLastError());
+#undef SYM_CASE
+}
+
+template <bool SELF>
+int sym_occupancy(int mode, int* blocks) {
+  switch (mode) {
+#define OCC_CASE(M)                                              \
+  case M:                                                        \
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
+        blocks, allpairs_sym_rounds<M, SELF>, kSymThreads, 0));
+    OCC_CASE(kExact)
+    OCC_CASE(kNewton)
+    OCC_CASE(kApprox)
+    OCC_CASE(kNewtonClamp)
+    OCC_CASE(kApproxClamp)
+#undef OCC_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -341,66 +493,54 @@ int allpairs_launch(const void* tgt, const void* src, const void* src_m,
   }
 }
 
-// K2. pos f32[N,2], mass f32[N], acc f64[2,N,2] zeroed by the caller
-// (scratch: the i-side and j-side accumulators), out f32[N,2]; all
-// contiguous on `device`. Launches nt/2 + 2 kernels on `stream` (nt =
-// ceil(N/256)) and returns the first CUDA error (0 on success) without
-// synchronising.
-int allpairs_sym_launch(const void* pos, const void* mass, void* acc,
-                        void* out, int n, float softening2, int mode,
-                        int device, void* stream) {
+// K2. pos f32[N,2], mass f32[N], acc f64[2,N,2] zeroed by the caller (the
+// i-side and j-side accumulators), out f32[N,2]; the schedule of
+// ops/allpairs.py:sym_schedule for nt = ceil(N/256) tiles: sched int32[B,4]
+// and fold uint8[K,nt] on the device, `launches` int32[n_launches,4] on the
+// host; slots f64[2,r_max,nt*256,2] scratch, r_max at least the rounds of
+// any launch. All device arrays contiguous on `device`. Launches
+// 2 * n_launches + 1 kernels on `stream` and returns the first CUDA error (0
+// on success) without synchronising.
+int allpairs_sym_launch(const void* pos, const void* mass, const void* sched,
+                        const void* fold, const int* launches, int n_launches,
+                        void* slots, int r_max, void* acc, void* out, int n,
+                        float softening2, int mode, int device,
+                        void* stream) {
   if (n <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kExact:
-      return launch_sym<kExact>(st, pos, mass, acc, out, n, softening2);
-    case kNewton:
-      return launch_sym<kNewton>(st, pos, mass, acc, out, n, softening2);
-    case kApprox:
-      return launch_sym<kApprox>(st, pos, mass, acc, out, n, softening2);
-    case kNewtonClamp:
-      return launch_sym<kNewtonClamp>(st, pos, mass, acc, out, n, softening2);
-    case kApproxClamp:
-      return launch_sym<kApproxClamp>(st, pos, mass, acc, out, n, softening2);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return sym_call<true>(mode, static_cast<cudaStream_t>(stream), pos, mass,
+                        pos, mass, sched, fold, launches, n_launches, slots,
+                        r_max, acc, out, n, softening2);
 }
 
-// K9. pos_i, pos_j f32[N,2], mass_i, mass_j f32[N], acc f64[2,N,2] zeroed
-// by the caller (scratch: the i-side and j-side accumulators), out
-// f32[2,N,2] (acc_i, then acc_j); all contiguous on `device`. Launches nt + 1
-// kernels on `stream` (nt = ceil(N/256)) and returns the first CUDA error
-// (0 on success) without synchronising.
+// K9. pos_i, pos_j f32[N,2], mass_i, mass_j f32[N], out f32[2,N,2] (acc_i,
+// then acc_j); the rest as K2's, with K9's schedule.
 int allpairs_sym_pair_launch(const void* pos_i, const void* mass_i,
-                             const void* pos_j, const void* mass_j, void* acc,
-                             void* out, int n, float softening2, int mode,
-                             int device, void* stream) {
+                             const void* pos_j, const void* mass_j,
+                             const void* sched, const void* fold,
+                             const int* launches, int n_launches, void* slots,
+                             int r_max, void* acc, void* out, int n,
+                             float softening2, int mode, int device,
+                             void* stream) {
   if (n <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kExact:
-      return launch_sym_pair<kExact>(st, pos_i, mass_i, pos_j, mass_j, acc,
-                                     out, n, softening2);
-    case kNewton:
-      return launch_sym_pair<kNewton>(st, pos_i, mass_i, pos_j, mass_j, acc,
-                                      out, n, softening2);
-    case kApprox:
-      return launch_sym_pair<kApprox>(st, pos_i, mass_i, pos_j, mass_j, acc,
-                                      out, n, softening2);
-    case kNewtonClamp:
-      return launch_sym_pair<kNewtonClamp>(st, pos_i, mass_i, pos_j, mass_j,
-                                           acc, out, n, softening2);
-    case kApproxClamp:
-      return launch_sym_pair<kApproxClamp>(st, pos_i, mass_i, pos_j, mass_j,
-                                           acc, out, n, softening2);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return sym_call<false>(mode, static_cast<cudaStream_t>(stream), pos_i,
+                         mass_i, pos_j, mass_j, sched, fold, launches,
+                         n_launches, slots, r_max, acc, out, n, softening2);
+}
+
+// The resident blocks per SM of K2's (self_pairs != 0) or K9's round kernel
+// in rcp mode `mode`, into *blocks; returns the CUDA error (0 on success).
+// Also the threads per block, into *threads.
+int allpairs_sym_occupancy(int self_pairs, int mode, int device, int* blocks,
+                           int* threads) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = kSymThreads;
+  return self_pairs ? sym_occupancy<true>(mode, blocks)
+                    : sym_occupancy<false>(mode, blocks);
 }
 
 // K6. tgt f32[Ni,2], src f32[Nj,2], src_m f32[Nj], out f32[Ni]; all

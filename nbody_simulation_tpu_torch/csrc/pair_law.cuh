@@ -7,8 +7,8 @@
 //              allpairs.py:52-100): K1 and the Barnes-Hut sweep (K3/K5);
 //   quad_pair  monopole plus quadrupole correction of _quad_tile
 //              (nbody_simulation_tpu/ops/traversal.py:149-207): K4;
-//   sym_r      the shared pair kernel k(d) of _sym_r (allpairs.py:103-137):
-//              K2 applies m_j*d*k to i and -m_i*d*k to j;
+//   sym_den,   the shared pair kernel k(d) of _sym_r (allpairs.py:103-137),
+//   sym_k      in two steps: K2 and K9 apply m_j*d*k to i and -m_i*d*k to j;
 //   pot_term   the counterpart potential of pot_tile (nbody_simulation_tpu/
 //              ops/energy.py:46-56): K6;
 //   grad_pair  the backward law of _pair_terms + _u_terms (nbody_simulation_
@@ -181,33 +181,55 @@ __device__ __forceinline__ void quad_pair(float dx, float dy, float m,
 }
 
 // Symmetric pair kernel k(d) = 1/(|d|_1 * max(|d|_2^2, eps)), 0 where the
-// mask guard drops the pair. `exact` is 1/den, then the caller multiplies:
-// not pair_accel's numerator-first order (<= 2 ulp apart, as _sym_r says);
-// the JAX order is kept. A masked pair gives k = 0, and the caller's
-// d * (m * k) is then NaN where d is NaN: the JAX kernel's NaN pattern.
+// mask guard drops the pair, in two steps so that a caller can take the
+// reciprocals of several pairs together (rcp_in_range). sym_den
+// gives s = |d|_1 and the denominator: s * max(d2, eps), max(s, clamp) *
+// max(d2, eps) under +clamp, and in `exact` 1 where the mask drops the pair.
+// sym_k finishes k from s, the denominator and, outside `exact`, its
+// rcp.approx r: the Newton step in the newton modes, then the mask. `exact`
+// is 1/den, then the caller multiplies: not pair_accel's numerator-first
+// order (<= 2 ulp apart, as _sym_r says); the JAX order is kept. A masked
+// pair gives k = 0, and the caller's d * (m * k) is then NaN where d is NaN:
+// the JAX kernel's NaN pattern.
 template <int MODE>
-__device__ __forceinline__ float sym_r(float dx, float dy, float soft2) {
-  const float s = __fadd_rn(fabsf(dx), fabsf(dy));
+__device__ __forceinline__ float sym_den(float dx, float dy, float soft2,
+                                         float& s) {
+  s = __fadd_rn(fabsf(dx), fabsf(dy));
   const float d2 =
       max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
-  if (MODE == kNewtonClamp || MODE == kApproxClamp) {
-    const float den = __fmul_rn(max_nan(s, kL1Clamp), d2);
-    float r = rcp_approx(den);
-    if (MODE == kNewtonClamp)
-      r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
-    return r;
-  }
-  const bool normal = is_normal(s);
-  float r;
+  if (MODE == kNewtonClamp || MODE == kApproxClamp)
+    return __fmul_rn(max_nan(s, kL1Clamp), d2);
+  if (MODE == kExact) return is_normal(s) ? __fmul_rn(s, d2) : 1.0f;
+  return __fmul_rn(s, d2);
+}
+
+template <int MODE>
+__device__ __forceinline__ float sym_k(float s, float den, float r) {
   if (MODE == kExact) {
-    r = __fdiv_rn(1.0f, normal ? __fmul_rn(s, d2) : 1.0f);
-  } else {
-    const float den = __fmul_rn(s, d2);
-    r = rcp_approx(den);
-    if (MODE == kNewton)
-      r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
+    const float q = __fdiv_rn(1.0f, den);
+    return is_normal(s) ? q : 0.0f;
   }
-  return normal ? r : 0.0f;
+  if (MODE == kNewton || MODE == kNewtonClamp)
+    r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
+  if (MODE == kNewtonClamp || MODE == kApproxClamp) return r;
+  return is_normal(s) ? r : 0.0f;
+}
+
+// rcp.approx.f32 (the non-.ftz form) scales a denominator outside [2^-126,
+// 2^126] before and after the hardware reciprocal, which costs each call a
+// range test and two multiplies; inside that range it is the hardware
+// reciprocal alone, which is what rcp.approx.ftz.f32 gives there. So where
+// every x of a warp lies in the range (rcp_in_range), rcp_approx_ftz(x) is
+// bitwise rcp_approx(x) at a third of the instructions.
+__device__ __forceinline__ bool rcp_in_range(float x) {
+  const float a = fabsf(x);
+  return a >= kFltMinNormal && a <= 0x1p126f;  // false for NaN
+}
+
+__device__ __forceinline__ float rcp_approx_ftz(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
 // Counterpart potential term -m / sqrt(max(r^2, eps)), 0 where |d|_1 is not

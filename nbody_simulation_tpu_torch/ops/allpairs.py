@@ -15,6 +15,13 @@ their divisibility checks, so the same calls raise the same errors; they
 size VMEM blocks on the TPU and do not shape the CUDA kernels, which take
 any N.
 
+K2 and K9 share one round kernel, which runs the tournament of tiles of
+256 (``SYM_TILE``) by the table ``sym_schedule`` builds here: several
+rounds per launch, each block writing f64 partial sums into slots that a
+fold then adds in round order. ``sym_launch_plan`` sizes the launches from
+the kernel's resident blocks on the card and caches the table there;
+``tests/test_torch_allpairs.py`` checks the table on the CPU.
+
 Non-finite positions. The symmetric law multiplies ``d · (m · k)`` after
 the mask has set ``k`` to 0, and NaN·0 is NaN: one NaN x-coordinate makes
 the x-component of every row NaN, while every y-component stays finite and
@@ -29,7 +36,9 @@ the NaN particle's row is 0. All match the JAX package on the CPU
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from nbody_simulation_tpu_torch.config import check_rcp
@@ -124,29 +133,184 @@ def allpairs_accel_sym_pair_ref(pos_i: torch.Tensor, mass_i: torch.Tensor,
 _lib = None
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of ``csrc/allpairs.cu`` on ``lib``."""
+    lib.allpairs_launch.restype = ctypes.c_int
+    lib.allpairs_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.allpairs_sym_launch.restype = ctypes.c_int
+    lib.allpairs_sym_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int),
+                                 ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.allpairs_sym_pair_launch.restype = ctypes.c_int
+    lib.allpairs_sym_pair_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int),
+                                 ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.allpairs_sym_occupancy.restype = ctypes.c_int
+    lib.allpairs_sym_occupancy.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.potential_launch.restype = ctypes.c_int
+    lib.potential_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
 def _load_lib():
     global _lib
     if _lib is None:
         from nbody_simulation_tpu_torch.cuda_build import load_cuda_library
-        lib = load_cuda_library("allpairs")
-        lib.allpairs_launch.restype = ctypes.c_int
-        lib.allpairs_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        lib.allpairs_sym_launch.restype = ctypes.c_int
-        lib.allpairs_sym_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int]
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        lib.allpairs_sym_pair_launch.restype = ctypes.c_int
-        lib.allpairs_sym_pair_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int]
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        lib.potential_launch.restype = ctypes.c_int
-        lib.potential_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        _lib = lib
+        _lib = _bind(load_cuda_library("allpairs"))
     return _lib
+
+
+# -- the symmetric kernels' schedule ------------------------------------------
+
+SYM_TILE = 256            # csrc/allpairs.cu: kSymTile, particles per tile
+SYM_WAVES = 16            # resident waves of blocks a launch aims at
+SYM_SCRATCH = 256 << 20   # bytes of f64 slots a call may hold
+
+
+class SymSchedule(NamedTuple):
+    """The launches of one K2 or K9 call (``sym_schedule``).
+
+    ``blocks`` int32 (B, 4): one row per block, (round, i tile, j tile,
+    slot), launch after launch; ``fold`` uint8 (K, nt): for round k and tile
+    t, bit 0 if a block of round k wrote tile t's i-side slot, bit 1 its
+    j-side slot; ``launches`` int32 (L, 4): (first row of ``blocks``, blocks,
+    first round, rounds)."""
+    blocks: np.ndarray
+    fold: np.ndarray
+    launches: np.ndarray
+
+
+def sym_rounds(nt: int, self_pairs: bool) -> list[int]:
+    """Blocks in each round of the tournament over ``nt`` tiles. K2
+    (``self_pairs``): rounds 0..nt//2, round 0 the diagonal, and for even nt
+    round nt/2 only its first nt/2 blocks (its other half repeats them). K9:
+    nt full rounds."""
+    if not self_pairs:
+        return [nt] * nt
+    return [nt // 2 if nt % 2 == 0 and k == nt // 2 else nt
+            for k in range(nt // 2 + 1)]
+
+
+def sym_schedule(nt: int, rounds_per_launch: int,
+                 self_pairs: bool) -> SymSchedule:
+    """The schedule the symmetric round kernel runs, ``rounds_per_launch``
+    consecutive rounds per launch. Block b of round k pairs i tile b with j
+    tile (b + k) mod nt and writes slot k - (the launch's first round); in
+    K2's round 0 the block has no j side. The fold after each launch adds
+    its slots into the accumulators in round order."""
+    per_round = np.array(sym_rounds(nt, self_pairs), dtype=np.int64)
+    starts = np.cumsum(per_round) - per_round
+    k = np.repeat(np.arange(len(per_round)), per_round)
+    b = np.arange(len(k)) - starts[k]
+    k0 = k // rounds_per_launch * rounds_per_launch
+    blocks = np.stack([k, b, (b + k) % nt, k - k0], axis=1).astype(np.int32)
+    firsts = starts[::rounds_per_launch]
+    first_rounds = np.arange(0, len(per_round), rounds_per_launch)
+    launches = np.stack([
+        firsts, np.diff(np.append(firsts, len(k))), first_rounds,
+        np.diff(np.append(first_rounds, len(per_round)))],
+        axis=1).astype(np.int32)
+    fold = np.zeros((len(per_round), nt), dtype=np.uint8)
+    fold[blocks[:, 0], blocks[:, 1]] |= 1
+    side_j = blocks[:, 0] != 0 if self_pairs else np.ones(len(blocks), bool)
+    fold[blocks[side_j, 0], blocks[side_j, 2]] |= 2
+    return SymSchedule(blocks, fold, launches)
+
+
+def sym_rounds_per_launch(nt: int, self_pairs: bool,
+                          resident_blocks: int) -> int:
+    """Rounds per launch: enough that a launch holds ``SYM_WAVES`` waves of
+    the card's ``resident_blocks``, at most ``SYM_SCRATCH`` bytes of slots
+    (2 sides × nt·256 particles × 16 bytes a round), then evened out over
+    the launches that takes."""
+    rounds = len(sym_rounds(nt, self_pairs))
+    per_round = 2 * nt * SYM_TILE * 16
+    r = min(rounds, -(-SYM_WAVES * resident_blocks // nt),
+            max(1, SYM_SCRATCH // per_round))
+    return -(-rounds // -(-rounds // r))
+
+
+class SymPlan(NamedTuple):
+    """A K2 or K9 call's launches on one device (``sym_launch_plan``)."""
+    nt: int
+    rounds_per_launch: int
+    blocks_per_sm: int       # resident blocks per SM, by the CUDA runtime
+    threads_per_block: int
+    schedule: SymSchedule
+    sched: torch.Tensor      # schedule.blocks on the device
+    fold: torch.Tensor       # schedule.fold on the device
+    launch_rows: ctypes.Array
+
+
+_plans: dict = {}
+
+
+def sym_launch_plan(n: int, device: torch.device, rcp: str = "newton",
+                    self_pairs: bool = True) -> SymPlan:
+    """The launches of K2 (``self_pairs``) or K9 on N (or L) particles on a
+    CUDA ``device`` in rcp mode ``rcp``: rounds per launch from the round
+    kernel's resident blocks per SM (``cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor``) and the device's SM count, and the schedule's tables
+    on the device. Built once per (device, tile count, mode, side)."""
+    mode = check_rcp(rcp)
+    device = torch.device(device)
+    nt = -(-n // SYM_TILE)
+    key = (device, nt, mode, self_pairs)
+    if key not in _plans:
+        lib = _load_lib()
+        blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.allpairs_sym_occupancy(int(self_pairs), mode,
+                                         device.index or 0,
+                                         ctypes.byref(blocks),
+                                         ctypes.byref(threads))
+        if err != 0 or blocks.value <= 0:
+            raise RuntimeError(f"symmetric round kernel occupancy query "
+                               f"failed: CUDA error {err}, "
+                               f"{blocks.value} blocks per SM")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        r = sym_rounds_per_launch(nt, self_pairs, blocks.value * sms)
+        sch = sym_schedule(nt, r, self_pairs)
+        rows = sch.launches.reshape(-1)
+        _plans[key] = SymPlan(
+            nt, r, blocks.value, threads.value, sch,
+            torch.from_numpy(sch.blocks).to(device),
+            torch.from_numpy(sch.fold).to(device),
+            (ctypes.c_int * len(rows))(*rows.tolist()))
+    return _plans[key]
+
+
+def _sym_launch(pos_i, mass_i, pos_j, mass_j, out, n, softening2, rcp,
+                self_pairs):
+    """One K2 (``self_pairs``: pos_j, mass_j are ignored) or K9 call: its
+    plan, the f64 accumulators and slots, the launches. Returns the CUDA
+    error."""
+    lib = _load_lib()
+    fn = (lib.allpairs_sym_launch if self_pairs
+          else lib.allpairs_sym_pair_launch)
+    plan = sym_launch_plan(n, pos_i.device, rcp, self_pairs)
+    acc = torch.zeros((2, n, 2), dtype=torch.float64, device=pos_i.device)
+    slots = torch.empty((2, plan.rounds_per_launch, plan.nt * SYM_TILE, 2),
+                        dtype=torch.float64, device=pos_i.device)
+    sides = ((pos_i.data_ptr(), mass_i.data_ptr()) if self_pairs else
+             (pos_i.data_ptr(), mass_i.data_ptr(), pos_j.data_ptr(),
+              mass_j.data_ptr()))
+    return fn(*sides, plan.sched.data_ptr(), plan.fold.data_ptr(),
+              plan.launch_rows, len(plan.schedule.launches),
+              slots.data_ptr(), plan.rounds_per_launch, acc.data_ptr(),
+              out.data_ptr(), n, float(softening2), check_rcp(rcp),
+              pos_i.device.index or 0,
+              torch.cuda.current_stream(pos_i.device).cuda_stream)
 
 
 def check_cuda_inputs(name: str, pairs) -> None:
@@ -202,19 +366,17 @@ def allpairs_sym_cuda(pos: torch.Tensor, mass: torch.Tensor,
                       softening2: float = 1e-3,
                       rcp: str = "newton") -> torch.Tensor:
     """Launch K2 (``csrc/allpairs.cu``): f32 (N, 2) positions and f32 (N,)
-    masses, contiguous on one CUDA device. One call launches one kernel per
-    tournament round plus a finishing one, and counts once in
-    ``allpairs_sym_cuda.launches``. Anything else raises; there is no
-    fallback. The f64 scratch is (2, N, 2)."""
-    mode = check_rcp(rcp)
+    masses, contiguous on one CUDA device. One call runs the launches of
+    ``sym_launch_plan`` (several tournament rounds each, then a fold) and a
+    finishing one, and counts once in ``allpairs_sym_cuda.launches``.
+    Anything else raises; there is no fallback. The f64 scratch is (2, N, 2)
+    accumulators and (2, R, nt·256, 2) slots for R rounds per launch."""
+    check_rcp(rcp)
     n = pos.shape[0]
     check_cuda_inputs("allpairs_sym_cuda", [(pos, (n, 2)), (mass, (n,))])
-    acc = torch.zeros((2, n, 2), dtype=torch.float64, device=pos.device)
     out = torch.empty_like(pos)
-    err = _load_lib().allpairs_sym_launch(
-        pos.data_ptr(), mass.data_ptr(), acc.data_ptr(), out.data_ptr(), n,
-        float(softening2), mode, pos.device.index or 0,
-        torch.cuda.current_stream(pos.device).cuda_stream)
+    err = _sym_launch(pos, mass, None, None, out, n, softening2, rcp,
+                      self_pairs=True)
     if err != 0:
         raise RuntimeError(f"allpairs_sym kernel launch failed: CUDA error "
                            f"{err} at N={n}, rcp={rcp}")
@@ -230,22 +392,19 @@ def allpairs_sym_pair_cuda(pos_i: torch.Tensor, mass_i: torch.Tensor,
                            softening2: float = 1e-3, rcp: str = "newton"):
     """Launch K9 (``csrc/allpairs.cu``): two blocks of L particles, f32
     (L, 2) positions and f32 (L,) masses each, contiguous on one CUDA
-    device; returns ``(acc_i, acc_j)``. One call launches one kernel per
-    round (ceil(L/256) of them) plus a finishing one, and counts once in
+    device; returns ``(acc_i, acc_j)``. One call runs the launches of
+    ``sym_launch_plan(..., self_pairs=False)`` over the ceil(L/256) rounds
+    and a finishing one, and counts once in
     ``allpairs_sym_pair_cuda.launches``. Anything else raises; there is no
-    fallback. The f64 scratch is (2, L, 2)."""
-    mode = check_rcp(rcp)
+    fallback. The f64 scratch is as K2's."""
+    check_rcp(rcp)
     n = pos_i.shape[0]
     check_cuda_inputs("allpairs_sym_pair_cuda",
                       [(pos_i, (n, 2)), (mass_i, (n,)), (pos_j, (n, 2)),
                        (mass_j, (n,))])
-    acc = torch.zeros((2, n, 2), dtype=torch.float64, device=pos_i.device)
     out = torch.empty((2, n, 2), dtype=torch.float32, device=pos_i.device)
-    err = _load_lib().allpairs_sym_pair_launch(
-        pos_i.data_ptr(), mass_i.data_ptr(), pos_j.data_ptr(),
-        mass_j.data_ptr(), acc.data_ptr(), out.data_ptr(), n,
-        float(softening2), mode, pos_i.device.index or 0,
-        torch.cuda.current_stream(pos_i.device).cuda_stream)
+    err = _sym_launch(pos_i, mass_i, pos_j, mass_j, out, n, softening2, rcp,
+                      self_pairs=False)
     if err != 0:
         raise RuntimeError(f"allpairs_sym_pair kernel launch failed: CUDA "
                            f"error {err} at L={n}, rcp={rcp}")

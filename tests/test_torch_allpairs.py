@@ -201,3 +201,120 @@ def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
     assert all(after[n] != before[n] for n in before)
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert cuda_build.library_path("allpairs") != after["allpairs"]
+
+
+def _run_schedule(sch, pos_i, mass_i, pos_j, mass_j, tile, self_pairs):
+    """The kernels' schedule played in float64 on tiles of ``tile``
+    particles: each block's i-side and j-side sums into its launch's slots
+    (NaN where no block wrote), then the fold in round order. Returns the i
+    side and the j side."""
+    n = len(pos_i)
+    nt = sch.fold.shape[1]
+    pad = nt * tile - n
+
+    def padded(a):
+        a = torch.tensor(a, dtype=torch.float64)
+        return torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+    pi, mi, pj, mj = (padded(a) for a in (pos_i, mass_i, pos_j, mass_j))
+    acc_i = torch.zeros((nt * tile, 2), dtype=torch.float64)
+    acc_j = torch.zeros_like(acc_i)
+    for first, count, k0, rounds in sch.launches:
+        slot_i = torch.full((rounds, nt * tile, 2), float("nan"),
+                            dtype=torch.float64)
+        slot_j = slot_i.clone()
+        for k, a, b, s in sch.blocks[first:first + count]:
+            ia, jb = slice(a * tile, (a + 1) * tile), slice(b * tile,
+                                                            (b + 1) * tile)
+            dx = pj[None, jb, 0] - pi[ia, None, 0]
+            dy = pj[None, jb, 1] - pi[ia, None, 1]
+            kr = tap.sym_r(dx, dy)
+            wi, wj = mj[None, jb] * kr, mi[ia, None] * kr
+            slot_i[s, ia] = torch.stack([(dx * wi).sum(1), (dy * wi).sum(1)],
+                                        1)
+            if not (self_pairs and k == 0):
+                slot_j[s, jb] = torch.stack([(dx * wj).sum(0),
+                                             (dy * wj).sum(0)], 1)
+        for s in range(rounds):
+            bits = torch.tensor(sch.fold[k0 + s]).repeat_interleave(tile)
+            acc_i += torch.where((bits & 1).bool()[:, None], slot_i[s], 0.0)
+            acc_j -= torch.where((bits & 2).bool()[:, None], slot_j[s], 0.0)
+    return acc_i[:n].numpy(), acc_j[:n].numpy()
+
+
+@pytest.mark.parametrize("rounds_per_launch", [1, 3, 64])
+@pytest.mark.parametrize("nt", [1, 2, 3, 8, 9, 200])
+def test_sym_schedule_pairs_each_tile_pair_once(nt, rounds_per_launch):
+    """The table the symmetric round kernel runs (K2: ``self_pairs``; K9):
+    every tile pair exactly once (K2: unordered, the diagonal i side only),
+    no two blocks of a launch on the same i or j slot entry, the fold bits
+    exactly the slots written, and the fold in round order. Up to nt=9,
+    the schedule played in float64 on small tiles gives the plain sums."""
+    for self_pairs in (True, False):
+        sch = tap.sym_schedule(nt, rounds_per_launch, self_pairs)
+        k, ti, tj, slot = sch.blocks.T
+        diag = (k == 0) if self_pairs else np.zeros(len(k), bool)
+        if self_pairs:
+            assert (ti[diag] == tj[diag]).all()
+            assert np.array_equal(np.sort(ti[diag]), np.arange(nt))
+            lo, hi = np.minimum(ti, tj)[~diag], np.maximum(ti, tj)[~diag]
+            assert (lo < hi).all()
+            a, b = np.triu_indices(nt, 1)
+            assert np.array_equal(np.sort(lo * nt + hi), a * nt + b)
+        else:
+            assert np.array_equal(np.sort(ti * nt + tj), np.arange(nt * nt))
+        first, count, k0, rounds = sch.launches.T
+        assert np.array_equal(first, np.cumsum(count) - count)
+        assert first[-1] + count[-1] == len(k)
+        assert np.array_equal(k0, np.cumsum(rounds) - rounds)
+        assert k0[-1] + rounds[-1] == len(sch.fold)
+        assert (rounds <= rounds_per_launch).all()
+        for f, c, r0, r in sch.launches:
+            rows = slice(f, f + c)
+            # Round order within the launch, and slot = round - first round.
+            assert (np.diff(k[rows]) >= 0).all()
+            assert np.array_equal(slot[rows], k[rows] - r0)
+            assert ((slot[rows] >= 0) & (slot[rows] < r)).all()
+            i_entries = slot[rows] * nt + ti[rows]
+            j_entries = (slot[rows] * nt + tj[rows])[~diag[rows]]
+            assert len(np.unique(i_entries)) == len(i_entries)
+            assert len(np.unique(j_entries)) == len(j_entries)
+        written = np.zeros_like(sch.fold)
+        np.bitwise_or.at(written, (k, ti), 1)
+        np.bitwise_or.at(written, (k[~diag], tj[~diag]), 2)
+        assert np.array_equal(sch.fold, written)
+        if nt > 9:
+            continue
+        tile = 4
+        n = nt * tile - 1  # a ragged last tile
+        pos, mass = cloud(nt, n)
+        if self_pairs:
+            got_i, got_j = _run_schedule(sch, pos, mass, pos, mass, tile,
+                                         True)
+            close_in_sum(got_i + got_j, tap.allpairs_accel_sym_ref(
+                torch.tensor(pos), torch.tensor(mass)).numpy(),
+                abs_scale(pos, pos, mass))
+        else:
+            pos_j, mass_j = cloud(nt + 100, n)
+            got = _run_schedule(sch, pos, mass, pos_j, mass_j, tile, False)
+            want = tap.allpairs_accel_sym_pair_ref(
+                *(torch.tensor(a) for a in (pos, mass, pos_j, mass_j)))
+            close_in_sum(got[0], want[0].numpy(),
+                         abs_scale(pos, pos_j, mass_j))
+            close_in_sum(got[1], want[1].numpy(),
+                         abs_scale(pos_j, pos, mass))
+
+
+@pytest.mark.parametrize("nt, self_pairs, resident, want", [
+    # 12 resident blocks per SM on 132 SMs, as the round kernel has on an
+    # H100 (chip_smoke.py prints it).
+    (592, True, 1584, 43),     # the galaxy: 297 rounds in 7 launches
+    (200, False, 1584, 100),   # K9 at L=51,200: 2 launches of 100 rounds
+    (4096, True, 1584, 7),     # N=1M: 16 waves in 7 rounds
+    (4096, True, 1 << 20, 8),  # bounded by the slots' bytes instead
+    (1, True, 1584, 1),
+])
+def test_sym_rounds_per_launch(nt, self_pairs, resident, want):
+    r = tap.sym_rounds_per_launch(nt, self_pairs, resident)
+    assert r == want
+    assert 2 * r * nt * tap.SYM_TILE * 16 <= max(
+        tap.SYM_SCRATCH, 2 * nt * tap.SYM_TILE * 16)

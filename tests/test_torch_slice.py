@@ -133,6 +133,39 @@ def test_pallas_world_with_the_ordered_kernel_matches_jax():
     _check_close(*_pallas_worlds_after_8_steps(sym_allpairs=False))
 
 
+@pytest.mark.parametrize("force_path", ["direct", "pallas"])
+def test_profiled_leapfrog_step_is_the_step(force_path):
+    """A profiled step runs config.integrator on the non-BH paths too: a
+    leapfrog run with step_timed interleaved is bitwise the plain leapfrog
+    run, and within the slice's tolerance of the JAX World's leapfrog run.
+    The JAX step_timed runs Euler on these paths; the port departs from it
+    (World.step_timed)."""
+    kw = dict(force_path=force_path, integrator="leapfrog")
+    if force_path == "pallas":
+        kw.update(PALLAS_KW)
+    jst = juniform(256, seed=5)
+    jw = JaxWorld(jst, JaxConfig(**kw))
+    arrays = [np.asarray(a) for a in (jst.pos, jst.vel, jst.mass)]
+    plain = World(state_from_numpy(*arrays), SimConfig(**kw))
+    timed = World(state_from_numpy(*arrays), SimConfig(**kw))
+    counting = Counting()
+    for i in range(4):
+        plain.step()
+        if i % 2:
+            timed.step()
+        else:
+            timed.step_timed(counting)
+    jw.run(4)
+    assert timed.updates == plain.updates == jw.updates == 4
+    assert counting.sum_gravity > 0 and counting.post_calculations > 0
+    for k in ("pos", "vel", "mass"):
+        assert torch.equal(getattr(timed.state, k), getattr(plain.state, k))
+    _check_close({k: np.asarray(getattr(jw.state, k)) for k in ("pos", "vel",
+                                                               "mass")},
+                 {k: getattr(timed.state, k).numpy() for k in ("pos", "vel",
+                                                               "mass")})
+
+
 def test_engine_pause_step_reconfigure():
     st = juniform(256, seed=3)
     w = World(state_from_numpy(np.asarray(st.pos), np.asarray(st.vel),
