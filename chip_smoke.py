@@ -13,7 +13,8 @@ version at the main paths' shapes:
 - the quadrupole sweep (K4) in all five rcp modes on a 65,536-body
   Plummer cluster at θ=0.5 with mass-weighted leaf COMs, at one leaf per
   planning row (the force-error shape) and at the CLI's four, and in
-  ``newton`` on the θ=0.5 galaxy's columns; the force error against an
+  ``newton`` on the θ=0.5 galaxy's columns, bounded == full and two calls
+  bitwise, with its grid of chunks; the force error against an
   f64 direct sum beside the monopole's, and θ=0 with the quadrupole
   against the f64 sum;
 - the symmetric (K2) and ordered (K1) all-pairs kernels in all five rcp
@@ -22,7 +23,8 @@ version at the main paths' shapes:
   and in the +clamp modes;
 - K1, K2 and the potential kernel (K6) at small N, where K2's tournament
   has one tile, an odd count of tiles or a ragged last tile;
-- K6 on the galaxy;
+- K6 on the galaxy, bitwise on two calls, and its NaN pattern, and at the
+  P=3 ring's shard shape;
 - the backward kernels of the gradient path: K7's two all-pairs sweeps on
   4,096 sampled rows of the padded galaxy (the sampled rows of a full
   launch bitwise those of the sampled launch) and at small N, K8's two
@@ -71,6 +73,7 @@ Nothing of JAX is imported: the card's machine has none.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -120,8 +123,13 @@ def law_ops(form: str, rcp: str) -> int:
     and "grad_j", a pair of the target-side (K7a, K8a) and source-side
     (K7b, K8b) backward sweeps, whose ``rcp`` is always newton. The sums into
     the accumulators count; loads, loop control and K2's shuffles do not,
-    being the implementation's. ``exact`` has no count: an IEEE division is
-    no fixed number of operations."""
+    being the implementation's. Every multiply and add is rounded on its
+    own (the JAX operation order; nvcc contracts nothing into an FMA), so
+    each counts. K4 and K6 count the form they take where every coordinate
+    of a staged tile lies within the kernel's bound, as every input timed
+    here does (|x| ≤ 2^61 and 2^125; a tile outside runs the general form,
+    one compare more). ``exact`` has no count: an IEEE division is no fixed
+    number of operations."""
     base, _, guard = rcp.partition("+")
     if form in ("grad_i", "grad_j"):
         # grad_pair, always newton: d 2 sub; |d|_1 1 add; d2 2 mul, add; κ
@@ -133,16 +141,20 @@ def law_ops(form: str, rcp: str) -> int:
         # (K7b, K8b) adds r·t and its sum.
         return 43 if form == "grad_i" else 45
     if form == "quad":
-        # _quad_tile: d 2 sub; |d|_1 1 add; d2 2 mul, add, max; the mask 2
-        # compares and 2 selects; a·b and m·ab 2; the signs 2 compares and
-        # 2 selects; a²b, ab², a³b, a²b², ab³ 5; 2dx, 2dy, 8dx, 8dy 4; g_x
-        # and g_y 3 each; 2a³b, 2ab² 2; g_xx and g_yy 7 each; g_xy 12;
-        # corr_x and corr_y 13 each; d·w + corr 2 each; the sums 2: 92,
-        # plus 3 for each of the two Newton steps. "+clamp" is ignored.
-        return 92 + {"newton": 6, "approx": 0}[base]
+        # _quad_tile: d 2 sub; |d|_1 1 add; d2 2 mul, add, max; the mask 1
+        # compare (the tile's bound proves |d|_1 finite) and 2 selects; a·b
+        # and m·ab 2; the signs 2 compares and 2 selects; a²b, ab², a³b,
+        # a²b², ab³ 5; 2dx, 2dy, 8dx, 8dy 4; g_x and g_y 3 each; 2a³b, 2ab²
+        # 2; g_xx and g_yy 7 each; g_xy 12; corr_x and corr_y 13 each; d·w
+        # + corr 2 each; the sums 2: 91, plus 3 for each of the two Newton
+        # steps. "+clamp" is ignored.
+        return 91 + {"newton": 6, "approx": 0}[base]
     ops = 8  # d: 2 sub; |d|_1: 1 add; d2: 2 mul, add, max; den or m*r: 1 mul
     if form == "pot":
-        return ops + 3 + 1  # the mask (2 compares, select) and the sum
+        # −m·rsqrt is the 1 mul above; the mask 1 compare (the tile's bound
+        # proves |d|_1 finite) and the sum 1 add under its predicate, which
+        # is the JAX select's sum (a run sum that starts at +0 is never -0).
+        return ops + 2
     ops += {"newton": 3, "approx": 0}[base]  # the Newton step r*(2 - den*r)
     ops += 1 if guard == "clamp" else 3      # max(s, clamp), or the mask
     return ops + (5 if form == "mono" else 10)  # m*r, d*w, sums; per side
@@ -176,18 +188,26 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found")
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library, run once per library (a run
+    takes seconds, and the bounds ask for one library many times)."""
+    return subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+
+
 def sass_per_pair(lib: Path, function: str) -> tuple[float, float]:
     """(instructions, MUFU ops) per pair in the hot loop of ``function`` in
     the built library, from ``cuobjdump -sass``: the law's operations and
     the implementation's overhead together. Every form of the pair law
     computes ‖d‖₁ = |dx| + |dy| once, as one FADD with two absolute-value
-    operands, so those count the loop's pairs; the hot loop is the
-    innermost loop (a backward branch with no other loop inside) holding
-    the most pairs, less any warp-uniform slow path inside it (the code a
-    branch after a VOTE.ALL jumps over)."""
-    text = subprocess.run([_cuobjdump(), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
+    operands (the first may carry a ``.reuse`` flag), so those count the
+    loop's pairs; the hot loop is the innermost loop (a backward branch
+    with no other loop inside) holding the most pairs, less any
+    warp-uniform slow path inside it (the code a branch after a VOTE.ALL
+    jumps over)."""
+    text = sass_text(lib)
     body, name = [], None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -219,7 +239,8 @@ def sass_per_pair(lib: Path, function: str) -> tuple[float, float]:
     inner = [(a, b) for a, b in loops
              if not any(a <= c and d <= b and (c, d) != (a, b)
                         for c, d in loops)]
-    pair_op = re.compile(r"FADD\S*\s+R\d+,\s*\|R\d+\|,\s*\|R\d+\|")
+    pair_op = re.compile(
+        r"FADD\S*\s+R\d+,\s*\|R\d+\|(?:\.reuse)?,\s*\|R\d+\|")
     best = None
     for a, b in inner:
         # A warp-uniform slow path inside the loop (VOTE.ALL, then a branch
@@ -432,7 +453,10 @@ def main() -> int:
         events = prof.key_averages()
         total = sum(dev_us(e) for e in events) / steps / 1e3
         sweep = sum(dev_us(e) for e in events
-                    if "grouped_sweep_kernel" in e.key) / steps / 1e3
+                    if "grouped_sweep_kernel" in e.key
+                    or "quad_sweep_kernel" in e.key) / steps / 1e3
+        fold = sum(dev_us(e) for e in events
+                   if "quad_fold" in e.key) / steps / 1e3
         ops = sum(1 for e in prof.events()
                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
         if total <= 0 or sweep <= 0:
@@ -442,8 +466,10 @@ def main() -> int:
                                "sweep kernel")
         log(f"{label} trace ({steps} steps): device time {total:.3f} ms per "
             f"step in {ops / steps:.0f} device operations; sweep kernel "
-            f"{sweep:.3f} ms ({sweep / total:.0%}), the rest (sort, tree, "
-            f"planner, integration) {total - sweep:.3f} ms")
+            f"{sweep:.3f} ms ({sweep / total:.0%})"
+            + (f" and K4's fold {fold:.3f} ms" if fold else "")
+            + f", the rest (sort, tree, planner, integration) "
+            f"{total - sweep - fold:.3f} ms")
 
     def plain_timed(fn):
         start = torch.cuda.Event(enable_timing=True)
@@ -511,7 +537,7 @@ def main() -> int:
     sweep_bound = bound("mono", main_rcp, sweep_pairs, sweep_bytes,
                         "grouped_sweep",
                         f"grouped_sweep_kernelILi{RCP_MODES.index(main_rcp)}"
-                        "ELb0E")
+                        "EE")
     log(f"sweep time at (1024, 256, 1280): kernel rcp={main_rcp} full "
         f"{ms_full:.4f} ms, bounded {ms_bound:.4f} ms; kernel exact bounded "
         f"{ms_exact:.4f} ms; plain torch {ms_plain:.3f} ms; bound "
@@ -526,10 +552,19 @@ def main() -> int:
         qtgt, (qx, qy, qm), qq, qlim = inputs
         qg, qs, _ = qtgt.shape
         qc = qx.shape[1]
+        qmode = RCP_MODES.index(quad_rcp)
+        plan = traversal.quad_launch_plan(qg, qs, qc, dev, qmode)
+        qshape = traversal.quad_launch_shape(qs, dev, qmode)
+        live = int(((qlim + plan.chunk - 1) // plan.chunk).sum()) * plan.tpg
+        resident = qshape.resident_blocks
         log(f"{label}: G={qg} S={qs} C={qc} ({qg * qs * qc / 1e6:.1f}M "
             f"pairs, {qlim.sum().item() * qs / 1e6:.1f}M within the "
-            f"per-group bounds; {min(256, (qs + 31) // 32 * 32)}-thread "
-            "blocks)")
+            f"per-group bounds); K4 grid: {plan.tpg} blocks of "
+            f"{plan.threads} threads x {plan.targets} targets per group, "
+            f"{plan.chunks} chunks of {plan.chunk} columns, "
+            f"{qshape.blocks_per_sm} resident blocks per SM: "
+            f"{qg * plan.tpg * plan.chunks / resident:.2f} waves full, "
+            f"{live / resident:.2f} bounded")
         qplain, plain_ms = plain_timed(lambda: traversal.grouped_force_ref(
             qtgt, qx, qy, qm, SOFTENING2, src_q=qq))
         qscale = quad_abs_sum(qtgt, qx, qy, qm, qq)
@@ -540,14 +575,22 @@ def main() -> int:
             bounded = traversal.grouped_sweep(qtgt, qx, qy, qm, SOFTENING2,
                                               rcp, col_limit=qlim, src_q=qq)
             torch.cuda.synchronize()
+            again = traversal.grouped_sweep(qtgt, qx, qy, qm, SOFTENING2,
+                                            rcp, col_limit=qlim, src_q=qq)
+            torch.cuda.synchronize()
             if not torch.equal(full, bounded):
                 raise RuntimeError(f"{label}, quad {rcp}: bounded sweep "
                                    "differs from the full sweep (max "
                                    f"{(full - bounded).abs().max()})")
+            if not torch.equal(bounded.view(torch.int32),
+                               again.view(torch.int32)):
+                raise RuntimeError(f"{label}, quad {rcp}: two calls on the "
+                                   "same input differ")
             errs[rcp] = hold(f"{label}: grouped_sweep quad rcp={rcp} vs plain"
                              " (exact), bound relative to sum(|dx w|+|corr|);"
-                             " bounded == full bitwise", full, qplain, qscale)
-        del qplain, qscale, full, bounded
+                             " bounded == full bitwise, two calls bitwise",
+                             full, qplain, qscale)
+        del qplain, qscale, full, bounded, again
         ms_full = timed_ms(lambda: traversal.grouped_sweep(
             qtgt, qx, qy, qm, SOFTENING2, quad_rcp, src_q=qq), reps=reps)
         ms_bound = timed_ms(lambda: traversal.grouped_sweep(
@@ -556,7 +599,7 @@ def main() -> int:
         qpairs = float(qlim.sum().item()) * qs
         qbytes = 4.0 * (6 * qlim.sum().item() + 4 * qg * qs) + 4 * qg
         bd = bound("quad", quad_rcp, qpairs, qbytes, "grouped_sweep",
-                   f"grouped_sweep_kernelILi{RCP_MODES.index(quad_rcp)}ELb1E")
+                   f"quad_sweep_kernelILi{RCP_MODES.index(quad_rcp)}EE")
         log(f"{label}: kernel rcp={quad_rcp} full {ms_full:.4f} ms, bounded "
             f"{ms_bound:.4f} ms; plain torch {plain_ms:.3f} ms (once); bound "
             f"{bd[0]:.4f} ms by {bd[1]} ({bd[2]})")
@@ -764,8 +807,34 @@ def main() -> int:
         lambda: en.allpairs_potential_ref(gpos, gmass, None, None,
                                           SOFTENING2))
     phi = en.allpairs_potential(gpos, gmass, softening2=SOFTENING2)
-    pot_err = hold("potential vs plain, galaxy (bound relative per target)",
-                   phi, phi_plain, phi_plain.abs())
+    again = en.allpairs_potential(gpos, gmass, softening2=SOFTENING2)
+    torch.cuda.synchronize()
+    if not torch.equal(phi.view(torch.int32), again.view(torch.int32)):
+        raise RuntimeError("potential: two calls on the same input differ")
+    pot_err = hold("potential vs plain, galaxy (bound relative per target); "
+                   "two calls bitwise", phi, phi_plain, phi_plain.abs())
+    pot_rel = ((phi.double() - phi_plain.double()).abs()
+               / phi_plain.double().abs().clamp_min(1e-300))
+    log(f"potential vs plain, galaxy: relative error max {pot_rel.max():.3e}"
+        f", median {pot_rel.median():.3e} (the root is rsqrt.approx)")
+    pplan = en.potential_launch_plan(n_gal, n_gal, dev, SOFTENING2)
+    log(f"potential grid at N={n_gal}: {pplan.target_blocks} target blocks "
+        f"of {pplan.targets_per_block}, {pplan.chunks} chunks of "
+        f"{pplan.chunk} sources: {pplan.target_blocks * pplan.chunks} blocks")
+    # NaN pattern (the JAX package's): the mask drops every pair with a NaN
+    # position, so every φ stays finite and the NaN particle's is 0.
+    nphi = en.allpairs_potential(npos, gmass, softening2=SOFTENING2)
+    nphi_plain = en.allpairs_potential_ref(npos, gmass, None, None,
+                                           SOFTENING2)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(nphi).all()) and nphi[bad].item() == 0.0
+            and torch.equal(torch.isfinite(nphi), torch.isfinite(nphi_plain))
+            and nphi_plain[bad].item() == 0.0):
+        raise RuntimeError("potential: NaN pattern differs from the plain "
+                           "version's")
+    hold("potential, one NaN x, vs plain (bound relative per target)", nphi,
+         nphi_plain, nphi_plain.abs().clamp_min(1e-30))
+    del again, nphi, nphi_plain
 
     # -- 7. the Barnes-Hut main path ------------------------------------------
     from nbody_simulation_tpu_torch import run
@@ -1314,10 +1383,10 @@ def main() -> int:
     sym_bound = bound("sym", main_ap, n_gal * n_gal / 2.0, gal_bytes,
                       "allpairs", f"allpairs_sym_roundsILi{mode}ELb0E")
     ord_bound = bound("mono", main_ap, float(n_gal) * n_gal, gal_bytes,
-                      "allpairs", f"ordered_kernelILi{mode}ELb0E")
+                      "allpairs", f"ordered_kernelILi{mode}EE")
     pot_bound = bound("pot", "exact", float(n_gal) * n_gal,
                       12.0 * n_gal + 4.0 * n_gal, "allpairs",
-                      "ordered_kernelILi0ELb1E")
+                      "potential_kernelILb1EE")
     sym_plan("K2 on the galaxy", n_gal, main_ap, True)
     sym_plan("K2 at N=1M", N_BIG, "newton", True)
     for name, ms, pl_ms, bd in (
@@ -1343,7 +1412,7 @@ def main() -> int:
              "allpairs_sym_roundsILi1ELb0E", 0.5),
             ("allpairs_sym approx+clamp", "sym", "approx+clamp",
              "allpairs_sym_roundsILi4ELb0E", 0.5),
-            ("allpairs newton", "mono", "newton", "ordered_kernelILi1ELb0E",
+            ("allpairs newton", "mono", "newton", "ordered_kernelILi1EE",
              1.0)):
         bd = bound(form, rcp, pairs * N_BIG * N_BIG, 20.0 * N_BIG,
                    "allpairs", fn_name)
@@ -1479,6 +1548,24 @@ def main() -> int:
             or abs(ke3 - ke1) > 1e-5 * abs(ke1)):
         raise RuntimeError(f"P=3 sharded energy {energy3}, launches "
                            f"{e_counts}")
+    # K6 at the ring's shard shape: one of sharded_total_energy's 9 calls.
+    p3i, m3i = st3.pos[:l3].contiguous(), st3.mass[:l3].contiguous()
+    p3j = st3.pos[l3:2 * l3].contiguous()
+    m3j = st3.mass[l3:2 * l3].contiguous()
+    phi3_plain = en.allpairs_potential_ref(p3i, None, p3j, m3j, SOFTENING2)
+    hold(f"potential at the P=3 shard shape (Ni=Nj={l3}) vs plain (bound "
+         "relative per target)", en.allpairs_potential(
+             p3i, m3i, p3j, m3j, SOFTENING2), phi3_plain, phi3_plain.abs())
+    ms_pot3 = timed_ms(lambda: en.allpairs_potential(
+        p3i, m3i, p3j, m3j, SOFTENING2), reps=10)
+    pot3_bound = bound("pot", "exact", float(l3) * l3, 24.0 * l3, "allpairs",
+                       "potential_kernelILb1EE")
+    pplan3 = en.potential_launch_plan(l3, l3, dev, SOFTENING2)
+    log(f"potential at Ni=Nj={l3}: kernel {ms_pot3:.4f} ms, bound "
+        f"{pot3_bound[0]:.4f} ms by {pot3_bound[1]} ({pot3_bound[2]}); grid "
+        f"{pplan3.target_blocks} target blocks x {pplan3.chunks} chunks of "
+        f"{pplan3.chunk} sources")
+    del p3i, m3i, p3j, m3j, phi3_plain
     ms_ring3 = timed_ms(lambda: par.ring_allpairs_accel(
         st3.pos, st3.mass, mesh3, rcp=main_ap), reps=10)
     ms_step3 = timed_ms(lambda: step3(st3), reps=10)

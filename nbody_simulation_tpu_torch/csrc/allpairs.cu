@@ -6,19 +6,33 @@
 // by allpairs_accel, pallas_call at :537):
 //   out[i] = sum_j mono_pair(src_j - tgt_i, m_j)
 // for targets f32[Ni,2] against sources f32[Nj,2] with masses f32[Nj].
+// One thread per target, 256 targets per block; the sources are staged
+// through shared memory as (x, y, m) in tiles of 1024 and read as
+// broadcasts. No reduction across threads, so no atomics, and the result
+// does not depend on the schedule.
+//
 // K6 replaces nbody_simulation_tpu/ops/energy.py:_potential_kernel (called
 // by allpairs_potential, pallas_call at :118):
 //   phi[i] = sum_j -m_j / sqrt(max(|p_j - p_i|^2, eps))
 // over pairs whose |d|_1 is a normal float (pot_term in pair_law.cuh),
-// giving f32[Ni]. Its reciprocal square root is __frsqrt_rn, correctly
-// rounded, so each term is within 1 ulp of -m_j/sqrt(d2); the plain
-// version's torch.rsqrt on the card is CUDA's rsqrtf (at most 2 ulp). Every
-// term has the sign of -m_j, so sum|c| = |phi| and the bound is relative.
-// Both are one kernel, ordered_kernel, templated on the pair term: one
-// thread per target, 256 targets per block; the sources are staged through
-// shared memory as (x, y, m) in tiles of 1024 and read as broadcasts. No
-// reduction across threads, so no atomics, and the result does not depend
-// on the schedule.
+// giving f32[Ni]. It is FP32-bound like K1 (the JAX law's 12 operations
+// per pair besides the root; 10 in the form run here, below). Two things
+// held it to a quarter of that bound when it was K1's skeleton: a correctly rounded root, a software
+// sequence of two dozen instructions; and one thread per target, each
+// block's loop serial over all Nj sources, which gave the galaxy half a
+// wave of blocks and the ring's shards (Ni = Nj = 51,200) 200 blocks on 132
+// SMs. So the root is rsqrt.approx (one MUFU.RSQ, relative error below
+// 2^-22.9, as the TPU kernel's lax.rsqrt; its .ftz form when eps is a
+// normal float); the mask is one compare where a bound on the block's
+// coordinates, checked once per stage, proves |d|_1 finite (pot_run); each
+// thread holds kPotTargets targets, which share every staged source; and
+// the sources are cut into chunks of whole runs, one block per (target
+// block, chunk), the chunk chosen by the host so that the grid makes
+// several whole waves of the kernel's resident blocks (ops/split.py:
+// chunk_plan). Each block writes its f64 sums to its own slot (chunk,
+// target), and potential_fold adds a target's slots in chunk order and
+// rounds once: no atomics, two calls bitwise equal. Every term has the sign
+// of -m_j, so sum|c| = |phi| and the error bound is relative.
 //
 // K2 replaces _allpairs_sym_kernel (called by allpairs_accel_sym,
 // pallas_call at :290; pair kernel _sym_r :103): each unordered pair's
@@ -84,13 +98,13 @@
 // What bounds them: at N=1M the inputs are 12 MB and the output 8 MB, while
 // K1 evaluates N^2 = 1.1e12 pairs and K2 N^2/2 (K6, once per energy
 // sample, N^2 like K1; K9 L^2 per call on 40 L bytes). Each pair is one MUFU
-// reciprocal or rsqrt (an IEEE division in `exact`) and a dozen to two dozen
-// FP32 operations of the law itself, so FP32 issue bounds them, not memory:
-// chip_smoke.py computes each bound from the card's clock and the law's
-// operation count per pair (PERF.md). A step of K2 and K9 also rotates five
-// registers by shuffle, 5 / kTargets per pair, which the law does not
-// count, and the slots move 32 bytes per particle and round through memory
-// (written by the blocks, read by the fold).
+// reciprocal or rsqrt (an IEEE division in the forces' `exact`) and a dozen
+// to two dozen FP32 operations of the law itself, so FP32 issue bounds them,
+// not memory: chip_smoke.py computes each bound from the card's clock and
+// the law's operation count per pair (PERF.md). A step of K2 and K9 also
+// rotates five registers by shuffle, 5 / kTargets per pair, which the law
+// does not count, and the slots move 32 bytes per particle and round through
+// memory (written by the blocks, read by the fold).
 
 #include <cuda_runtime.h>
 
@@ -100,9 +114,14 @@ namespace {
 
 using namespace pair_law;
 
-constexpr int kThreads = 256;  // K1, K6: targets per block
-constexpr int kTile = 1024;    // K1, K6: sources staged per pass
+constexpr int kThreads = 256;  // K1: targets per block
+constexpr int kTile = 1024;    // K1: sources staged per pass
 constexpr int kRun = 32;       // K1, K6: terms per f32 run sum (divides kTile)
+
+constexpr int kPotThreads = 256;   // K6: threads per block
+constexpr int kPotTargets = 16;    // K6: targets per thread
+constexpr int kPotStage = 1024;    // K6: sources staged per pass
+static_assert(kPotStage % kRun == 0, "a stage holds whole runs");
 
 // K2, K9. kTargets is the number of i targets each lane holds: a group of
 // kGroup = 32 / kTargets lanes rotates a chunk of kGroup sources, so each
@@ -116,9 +135,8 @@ constexpr int kGroup = 32 / kTargets;             // lanes per source chunk
 constexpr int kSymThreads = kSymTile / kTargets;  // threads per block
 constexpr int kParts = kSymTile / 32;             // j-side partials per source
 
-// The ordered sweep. POT: K6, the potential into out f32[Ni]; else K1, the
-// force in rcp mode MODE into out f32[Ni,2].
-template <int MODE, bool POT>
+// K1, the ordered force sweep in rcp mode MODE into out f32[Ni,2].
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 ordered_kernel(const float2* __restrict__ tgt, const float2* __restrict__ src,
                const float* __restrict__ src_m, float* __restrict__ out,
@@ -144,25 +162,116 @@ ordered_kernel(const float2* __restrict__ tgt, const float2* __restrict__ src,
         const float4 q = sh[j];
         const float dx = __fsub_rn(q.x, t.x);
         const float dy = __fsub_rn(q.y, t.y);
-        if constexpr (POT) {
-          rx = __fadd_rn(rx, pot_term(dx, dy, q.z, soft2));
-        } else {
-          float cx, cy;
-          mono_pair<MODE>(dx, dy, q.z, soft2, cx, cy);
-          rx = __fadd_rn(rx, cx);
-          ry = __fadd_rn(ry, cy);
-        }
+        float cx, cy;
+        mono_pair<MODE>(dx, dy, q.z, soft2, cx, cy);
+        rx = __fadd_rn(rx, cx);
+        ry = __fadd_rn(ry, cy);
       }
       ax = __dadd_rn(ax, static_cast<double>(rx));
-      if constexpr (!POT) ay = __dadd_rn(ay, static_cast<double>(ry));
+      ay = __dadd_rn(ay, static_cast<double>(ry));
     }
   }
   if (!live) return;
-  if constexpr (POT)
-    out[i] = static_cast<float>(ax);
-  else
-    reinterpret_cast<float2*>(out)[i] =
-        make_float2(static_cast<float>(ax), static_cast<float>(ay));
+  reinterpret_cast<float2*>(out)[i] =
+      make_float2(static_cast<float>(ax), static_cast<float>(ay));
+}
+
+// K6's stage bound: where every target of the block and every staged
+// source has |x|, |y| <= 2^125 (or is NaN), every |d| <= 2^126 per axis and
+// s = |d|_1 is finite or NaN, so the mask is one compare
+// (pair_counts<true>); a stage holding an inf or a larger coordinate takes
+// the full mask.
+constexpr float kPotCoordBound = 0x1p125f;
+
+__device__ __forceinline__ bool pot_bounded(float x, float y) {
+  return !(fabsf(x) > kPotCoordBound) && !(fabsf(y) > kPotCoordBound);
+}
+
+// One run of K6's stage: staged sources [j0, j1) against the thread's
+// kPotTargets targets, summed in source order into r.
+template <bool FTZ, bool BOUNDED>
+__device__ __forceinline__ void pot_run(const float4* __restrict__ sh,
+                                        int j0, int j1,
+                                        const float (&tx)[kPotTargets],
+                                        const float (&ty)[kPotTargets],
+                                        float soft2,
+                                        float (&r)[kPotTargets]) {
+#pragma unroll 8
+  for (int j = j0; j < j1; ++j) {
+    const float4 q = sh[j];
+#pragma unroll
+    for (int t = 0; t < kPotTargets; ++t) {
+      float phi;
+      if (pot_term<FTZ, BOUNDED>(__fsub_rn(q.x, tx[t]),
+                                 __fsub_rn(q.y, ty[t]), q.z, soft2, phi))
+        r[t] = __fadd_rn(r[t], phi);
+    }
+  }
+}
+
+// K6. Block (target block blockIdx.x, chunk blockIdx.y): targets i0 + t *
+// kPotThreads against sources [k * chunk, min((k + 1) * chunk, nj)), f64
+// sums into slots[k, i]. A thread past ni computes on target ni - 1 and
+// writes nothing.
+template <bool FTZ>
+__global__ void __launch_bounds__(kPotThreads)
+potential_kernel(const float2* __restrict__ tgt,
+                 const float2* __restrict__ src,
+                 const float* __restrict__ src_m, double* __restrict__ slots,
+                 int ni, int nj, int chunk, float soft2) {
+  __shared__ float4 sh[kPotStage];
+  const int k = blockIdx.y;
+  const int j_end = min((k + 1) * chunk, nj);
+  const int i0 = blockIdx.x * (kPotThreads * kPotTargets) + threadIdx.x;
+  float tx[kPotTargets], ty[kPotTargets];
+  double acc[kPotTargets];
+  bool tgt_bounded = true;
+#pragma unroll
+  for (int t = 0; t < kPotTargets; ++t) {
+    const float2 p = tgt[min(i0 + t * kPotThreads, ni - 1)];
+    tx[t] = p.x;
+    ty[t] = p.y;
+    tgt_bounded &= pot_bounded(p.x, p.y);
+    acc[t] = 0.0;
+  }
+  for (int base = k * chunk; base < j_end; base += kPotStage) {
+    const int n = min(kPotStage, j_end - base);
+    __syncthreads();  // the previous stage is fully consumed
+    bool bounded = tgt_bounded;
+    for (int j = threadIdx.x; j < n; j += kPotThreads) {
+      const float2 p = src[base + j];
+      sh[j] = make_float4(p.x, p.y, src_m[base + j], 0.0f);
+      bounded &= pot_bounded(p.x, p.y);
+    }
+    const bool fast = __syncthreads_and(bounded);
+    for (int j0 = 0; j0 < n; j0 += kRun) {
+      const int j1 = min(j0 + kRun, n);
+      float r[kPotTargets] = {};
+      if (fast)
+        pot_run<FTZ, true>(sh, j0, j1, tx, ty, soft2, r);
+      else
+        pot_run<FTZ, false>(sh, j0, j1, tx, ty, soft2, r);
+#pragma unroll
+      for (int t = 0; t < kPotTargets; ++t)
+        acc[t] = __dadd_rn(acc[t], static_cast<double>(r[t]));
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kPotTargets; ++t) {
+    const int i = i0 + t * kPotThreads;
+    if (i < ni) slots[static_cast<size_t>(k) * ni + i] = acc[t];
+  }
+}
+
+// K6's fold: target i adds its chunks' slots in chunk order, rounds once.
+__global__ void potential_fold(const double* __restrict__ slots,
+                               float* __restrict__ out, int ni, int chunks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ni) return;
+  double a = 0.0;
+  for (int k = 0; k < chunks; ++k)
+    a = __dadd_rn(a, slots[static_cast<size_t>(k) * ni + i]);
+  out[i] = static_cast<float>(a);
 }
 
 // One block's share of a round: i tile ti (targets) against j tile tj
@@ -365,11 +474,11 @@ __global__ void sym_finish(const double2* __restrict__ acc_i,
   }
 }
 
-template <int MODE, bool POT = false>
+template <int MODE>
 int launch_ordered(cudaStream_t st, const void* tgt, const void* src,
                    const void* src_m, void* out, int ni, int nj, float soft2) {
   const int blocks = (ni + kThreads - 1) / kThreads;
-  ordered_kernel<MODE, POT><<<blocks, kThreads, 0, st>>>(
+  ordered_kernel<MODE><<<blocks, kThreads, 0, st>>>(
       static_cast<const float2*>(tgt), static_cast<const float2*>(src),
       static_cast<const float*>(src_m), static_cast<float*>(out), ni, nj,
       soft2);
@@ -531,29 +640,73 @@ int allpairs_sym_pair_launch(const void* pos_i, const void* mass_i,
                          n_launches, slots, r_max, acc, out, n, softening2);
 }
 
-// The resident blocks per SM of K2's (self_pairs != 0) or K9's round kernel
-// in rcp mode `mode`, into *blocks; returns the CUDA error (0 on success).
-// Also the threads per block, into *threads.
-int allpairs_sym_occupancy(int self_pairs, int mode, int device, int* blocks,
-                           int* threads) {
+// The launch shape of K2's (self_pairs != 0) or K9's round kernel in rcp
+// mode `mode`: threads per block, targets per lane and resident blocks per
+// SM, into the three pointers; returns the CUDA error (0 on success).
+int allpairs_sym_shape(int self_pairs, int mode, int device, int* threads,
+                       int* targets, int* blocks) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   *threads = kSymThreads;
+  *targets = kTargets;
   return self_pairs ? sym_occupancy<true>(mode, blocks)
                     : sym_occupancy<false>(mode, blocks);
 }
 
-// K6. tgt f32[Ni,2], src f32[Nj,2], src_m f32[Nj], out f32[Ni]; all
-// contiguous on `device`. Launches on `stream` and returns
-// cudaGetLastError() (0 on success) without synchronising.
+// K6. tgt f32[Ni,2], src f32[Nj,2], src_m f32[Nj], out f32[Ni]; slots
+// f64[ceil(Nj/chunk),Ni] scratch; chunk a positive multiple of 32. All
+// contiguous on `device`. FTZ takes the .ftz root, for softening2 >=
+// FLT_MIN_NORMAL. Launches the sweep and its fold on `stream` and returns
+// the first CUDA error (0 on success) without synchronising.
 int potential_launch(const void* tgt, const void* src, const void* src_m,
-                     void* out, int ni, int nj, float softening2, int device,
-                     void* stream) {
+                     void* slots, void* out, int ni, int nj, int chunk,
+                     float softening2, int device, void* stream) {
   if (ni <= 0) return 0;
+  if (chunk <= 0 || chunk % kRun != 0 || nj < 0 ||
+      (nj + chunk - 1) / chunk > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_ordered<kExact, true>(static_cast<cudaStream_t>(stream), tgt,
-                                      src, src_m, out, ni, nj, softening2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = (nj + chunk - 1) / chunk;
+  if (chunks > 0) {
+    const dim3 grid((ni + kPotThreads * kPotTargets - 1) /
+                        (kPotThreads * kPotTargets),
+                    chunks);
+    const auto* t = static_cast<const float2*>(tgt);
+    const auto* s = static_cast<const float2*>(src);
+    const auto* m = static_cast<const float*>(src_m);
+    auto* sl = static_cast<double*>(slots);
+    if (softening2 >= kFltMinNormal)
+      potential_kernel<true><<<grid, kPotThreads, 0, st>>>(
+          t, s, m, sl, ni, nj, chunk, softening2);
+    else
+      potential_kernel<false><<<grid, kPotThreads, 0, st>>>(
+          t, s, m, sl, ni, nj, chunk, softening2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  potential_fold<<<(ni + 255) / 256, 256, 0, st>>>(
+      static_cast<const double*>(slots), static_cast<float*>(out), ni,
+      chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's launch shape: threads per block, targets per thread and the
+// resident blocks per SM of the form softening2 picks, into the three
+// pointers; returns the CUDA error (0 on success).
+int potential_shape(float softening2, int device, int* threads,
+                    int* targets, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = kPotThreads;
+  *targets = kPotTargets;
+  return static_cast<int>(
+      softening2 >= kFltMinNormal
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                blocks, potential_kernel<true>, kPotThreads, 0)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                blocks, potential_kernel<false>, kPotThreads, 0));
 }
 
 }  // extern "C"

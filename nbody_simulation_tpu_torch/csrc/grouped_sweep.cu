@@ -1,13 +1,14 @@
-// Barnes-Hut grouped force sweep for Hopper (sm_90a).
+// Barnes-Hut grouped force sweeps for Hopper (sm_90a).
 //
 // Replaces: nbody_simulation_tpu/ops/traversal.py:_sweep_kernel, as called
 // by _grouped_force (the full sweep, pallas_call at :637) and
 // _grouped_force_bucketed (the occupancy-bucketed sweep, :753), in both of
 // its forms:
-//   K3 (QUAD=false)  the monopole, mono_tile's law;
-//   K4 (QUAD=true)   monopole plus quadrupole correction, _quad_tile's law
-//                    (:149-207), with three more source columns: the
-//                    accepted nodes' second moments (qxx, qxy, qyy).
+//   K3 (grouped_sweep_kernel)  the monopole, mono_tile's law;
+//   K4 (quad_sweep_kernel)     monopole plus quadrupole correction,
+//                              _quad_tile's law (:149-207), with three more
+//                              source columns: the accepted nodes' second
+//                              moments (qxx, qxy, qyy).
 // The per-group column bound `col_limit` takes the place of the bucketed
 // variant's two static-width calls, its scalar-prefetch block permutation
 // and its lax.cond budget guard, with the same result: trailing columns with
@@ -15,26 +16,47 @@
 //
 // Computes, for every group g and target s:
 //   out[g,s] = sum_{c < col_limit[g] (or C)} f(src[g,c] - tgt[g,s], ...)
-// with f mono_pair or quad_pair of pair_law.cuh (shared with the all-pairs
-// kernels) in one of the five rcp modes.
+// with f mono_pair or K4's quad law of pair_law.cuh (shared with the
+// all-pairs kernels) in one of the five rcp modes.
 //
-// What bounds it: K3 at the galaxy's main-path shape (G=1024 groups, S=256
-// targets, C=1280 columns) reads 15.7 MB of sources once and evaluates 335M
-// pairs (166M within the per-group bounds), each one MUFU reciprocal and
-// 16 FP32 operations of the law at rcp=approx. K4 on the 65,536-body Plummer
-// cluster at θ=0.5 evaluates 1.14e9 pairs (G=1024, S=64, C=17,408 at one leaf
-// per planning row, 8.4e8 within the bounds; G=256, S=256 at the CLI's four,
-// 1.0e9), each two MUFU reciprocals and 98 FP32 operations at rcp=newton,
-// from 428 MB or 107 MB of sources. Both are bound by FP32 issue, not memory:
-// chip_smoke.py computes each bound from the card's clock and the law's
-// operation count (PERF.md).
+// What bounds them: K3 at the galaxy's main-path shape (G=1024 groups,
+// S=256 targets, C=1280 columns) reads 15.7 MB of sources once and
+// evaluates 335M pairs (166M within the per-group bounds), each one MUFU
+// reciprocal and 16 FP32 operations of the law at rcp=approx. K4 on the
+// 65,536-body Plummer cluster at θ=0.5 evaluates 1.14e9 pairs (G=1024, S=64,
+// C=17,408 at one leaf per planning row, 8.4e8 within the bounds; G=256,
+// S=256 at the CLI's four, 1.0e9), each two MUFU reciprocals and 98 FP32
+// operations at rcp=newton (97 where a tile's coordinate bound drops a
+// compare, below), from 428 MB or 107 MB of sources. Both are bound
+// by FP32 issue, not memory: chip_smoke.py computes each bound from the
+// card's clock and the law's operation count (PERF.md).
 //
-// What the design does about it: one thread per target and no reduction
-// across threads. One block per (group, target chunk), the chunk S rounded
-// up to a warp and capped at 256 (a 64-target group would leave 3/4 of a
-// 256-thread block idle); sums in registers in column order (deterministic,
-// no atomics). The group's source columns are staged through shared memory
-// in tiles of 1024 (12 KB for K3, 24 KB for K4) and read as broadcasts.
+// K3's design: one thread per target and no reduction across threads. One
+// block per (group, target chunk), the chunk S rounded up to a warp and
+// capped at 256; sums in registers in column order (deterministic, no
+// atomics). The group's source columns are staged through shared memory in
+// tiles of 1024 (12 KB) and read as broadcasts.
+//
+// K4's design. One block per group left K4 to the longest group: at the
+// CLI's Plummer shape 256 blocks on 132 SMs, one partial wave, and on the
+// θ=0.5 galaxy groups whose bounds differ several-fold. So the columns of
+// every group are cut into chunks of `chunk` columns (whole runs of 32,
+// fixed by the host from the grid's shape alone, ops/split.py:
+// chunk_plan), and the grid is every (group, target block, chunk): a
+// block whose chunk starts at or past col_limit[g] returns at once, the
+// others are of one size, so the card runs many even waves. Each block
+// writes its f64 sums to its own slot (chunk, group, target); quad_fold
+// adds a target's written slots in chunk order and rounds to f32 once. No
+// atomics: two calls are bitwise equal, and as the chunk boundaries do not
+// depend on col_limit, the bounded sweep is bitwise the full one (the
+// chunks past the bound sum to +0). Inside a block each thread holds
+// kQuadTargets targets, which share every staged column: a column is
+// staged as one float4 (x, y, m, qxx) and one float2 (qxy, qyy) in tiles of
+// kQuadStage, so a step costs two shared loads for kQuadTargets pairs. The
+// reciprocals take rcp.approx.ftz.f32 (MUFU.RCP alone) and the mask one
+// compare where a bound on the block's coordinates, checked once per
+// stage, makes that bitwise the general form (quad_run, pair_law.cuh:
+// quad_rcp), and the non-.ftz form with its range fix-up otherwise.
 //
 // Summation: each run of 32 columns is summed in f32 on its own, and the run
 // sums are added in f64 and rounded once, as the all-pairs kernels do: the
@@ -43,7 +65,10 @@
 // node's COM often comes first (5.4e-5 of sum|c| against the pairwise torch
 // sum on an H100); adding the run sums in f32 bounds the error by about
 // (32 + C/32) ulps of sum|c|, ~3.4e-5 at K4's C of 17-18k, above the 1e-5
-// gate. One f64 add per 32 pairs costs K3 nothing measurable (PERF.md).
+// gate. One f64 add per 32 pairs costs K3 nothing measurable (PERF.md). K4's
+// runs are K3's; its chunks add the f64 run sums of a chunk, then the fold
+// the chunks, so a chunked K4 differs from one unchunked block per group
+// only in the association of the f64 sum (tools/sweep_kernel_ab.py).
 
 #include <cuda_runtime.h>
 
@@ -53,22 +78,24 @@ namespace {
 
 using namespace pair_law;
 
-constexpr int kMaxThreads = 256;  // targets per block, at most
-constexpr int kTile = 1024;       // source columns staged per pass
+constexpr int kMaxThreads = 256;  // K3: targets per block, at most
+constexpr int kTile = 1024;       // K3: source columns staged per pass
 constexpr int kRun = 32;          // columns per inner sum (divides kTile)
 
-template <int MODE, bool QUAD>
+constexpr int kQuadThreads = 128;  // K4: threads per block, at most
+constexpr int kQuadTargets = 2;    // K4: targets per thread
+constexpr int kQuadStage = 256;    // K4: columns staged per pass
+static_assert(kQuadStage % kRun == 0, "a stage holds whole runs");
+
+template <int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 grouped_sweep_kernel(const float2* __restrict__ tgt,
                      const float* __restrict__ src_x,
                      const float* __restrict__ src_y,
                      const float* __restrict__ src_m,
-                     const float* __restrict__ src_qxx,
-                     const float* __restrict__ src_qxy,
-                     const float* __restrict__ src_qyy,
                      const int* __restrict__ col_limit,
                      float2* __restrict__ out, int S, int C, float soft2) {
-  constexpr int kCols = QUAD ? 6 : 3;
+  constexpr int kCols = 3;
   __shared__ float sh[kCols][kTile];
 
   const int g = blockIdx.x;
@@ -80,13 +107,7 @@ grouped_sweep_kernel(const float2* __restrict__ tgt,
   int limit = C;
   if (col_limit != nullptr) limit = min(max(col_limit[g], 0), C);
   const size_t srow = static_cast<size_t>(g) * C;
-  const float* cols[6] = {src_x + srow, src_y + srow, src_m + srow,
-                          nullptr, nullptr, nullptr};
-  if (QUAD) {
-    cols[3] = src_qxx + srow;
-    cols[4] = src_qxy + srow;
-    cols[5] = src_qyy + srow;
-  }
+  const float* cols[kCols] = {src_x + srow, src_y + srow, src_m + srow};
 
   double ax = 0.0, ay = 0.0;
   for (int base = 0; base < limit; base += kTile) {
@@ -106,11 +127,7 @@ grouped_sweep_kernel(const float2* __restrict__ tgt,
           const float dx = __fsub_rn(sh[0][j], t.x);
           const float dy = __fsub_rn(sh[1][j], t.y);
           float cx, cy;
-          if constexpr (QUAD)
-            quad_pair<MODE>(dx, dy, sh[2][j], sh[3][j], sh[4][j], sh[5][j],
-                            soft2, cx, cy);
-          else
-            mono_pair<MODE>(dx, dy, sh[2][j], soft2, cx, cy);
+          mono_pair<MODE>(dx, dy, sh[2][j], soft2, cx, cy);
           rx = __fadd_rn(rx, cx);
           ry = __fadd_rn(ry, cy);
         }
@@ -123,76 +140,297 @@ grouped_sweep_kernel(const float2* __restrict__ tgt,
     out[trow + s] = make_float2(static_cast<float>(ax), static_cast<float>(ay));
 }
 
-struct Args {
-  const void *tgt, *sx, *sy, *sm, *qxx, *qxy, *qyy, *col_limit;
-  void* out;
-  int S, C;
+// K4's stage bound: a stage takes the fast form of the law (FAST in
+// pair_law.cuh: rcp.approx.ftz.f32, and the mask as s >= FLT_MIN_NORMAL)
+// when every target of the block and every staged column has |x|, |y| <=
+// 2^61 and FLT_MIN_NORMAL <= eps <= 2^126. Then every |d| <= 2^62 per
+// axis, so d2 lies in [2^-126, 2^125] and s <= 2^63, where the fast form is
+// bitwise the general one. Otherwise (a NaN, inf or huge coordinate, a
+// tiny eps) the stage takes the general form, rcp.approx.f32 with its range
+// fix-up and the full mask.
+constexpr float kQuadCoordBound = 0x1p61f;
+
+__device__ __forceinline__ bool quad_bounded(float x, float y) {
+  return fabsf(x) <= kQuadCoordBound && fabsf(y) <= kQuadCoordBound;
+}
+
+// One run of K4's stage: staged columns [j0, j1) against the thread's
+// kQuadTargets targets, summed in column order into rx, ry.
+template <int MODE, bool FAST>
+__device__ __forceinline__ void quad_run(const float4* __restrict__ sh_a,
+                                         const float2* __restrict__ sh_b,
+                                         int j0, int j1,
+                                         const float (&tx)[kQuadTargets],
+                                         const float (&ty)[kQuadTargets],
+                                         float soft2,
+                                         float (&rx)[kQuadTargets],
+                                         float (&ry)[kQuadTargets]) {
+#pragma unroll 2
+  for (int j = j0; j < j1; ++j) {
+    const float4 p = sh_a[j];  // x, y, m, qxx
+    const float2 q = sh_b[j];  // qxy, qyy
+#pragma unroll
+    for (int t = 0; t < kQuadTargets; ++t) {
+      const float dx = __fsub_rn(p.x, tx[t]);
+      const float dy = __fsub_rn(p.y, ty[t]);
+      float s, d2, a, b, cx, cy;
+      quad_den(dx, dy, soft2, s, d2);
+      quad_rcp<MODE, FAST>(s, d2, a, b);
+      quad_terms<FAST>(dx, dy, s, a, b, p.z, p.w, q.x, q.y, cx, cy);
+      rx[t] = __fadd_rn(rx[t], cx);
+      ry[t] = __fadd_rn(ry[t], cy);
+    }
+  }
+}
+
+// Block (g * tpg + target block, chunk k): targets s0 + t * blockDim.x of
+// group g against its columns [k * chunk, min((k + 1) * chunk, limit)),
+// f64 sums into slots[k, g, s]. A thread past S computes on target S - 1
+// and writes nothing.
+template <int MODE>
+__global__ void __launch_bounds__(kQuadThreads)
+quad_sweep_kernel(const float2* __restrict__ tgt,
+                  const float* __restrict__ src_x,
+                  const float* __restrict__ src_y,
+                  const float* __restrict__ src_m,
+                  const float* __restrict__ src_qxx,
+                  const float* __restrict__ src_qxy,
+                  const float* __restrict__ src_qyy,
+                  const int* __restrict__ col_limit,
+                  double2* __restrict__ slots, int G, int S, int C, int chunk,
+                  int tpg, float soft2) {
+  __shared__ float4 sh_a[kQuadStage];  // x, y, m, qxx
+  __shared__ float2 sh_b[kQuadStage];  // qxy, qyy
+
+  const int g = blockIdx.x / tpg;
+  int limit = C;
+  if (col_limit != nullptr) limit = min(max(col_limit[g], 0), C);
+  const int c0 = blockIdx.y * chunk;
+  if (c0 >= limit) return;  // the whole block: a chunk past the bound
+  const int c1 = min(c0 + chunk, limit);
+
+  const int s0 = (blockIdx.x % tpg) * (blockDim.x * kQuadTargets) +
+                 static_cast<int>(threadIdx.x);
+  const size_t trow = static_cast<size_t>(g) * S;
+  float tx[kQuadTargets], ty[kQuadTargets];
+  double ax[kQuadTargets], ay[kQuadTargets];
+  bool tgt_bounded = soft2 >= kFltMinNormal && soft2 <= 0x1p126f;
+#pragma unroll
+  for (int t = 0; t < kQuadTargets; ++t) {
+    const float2 p = tgt[trow + min(s0 + t * static_cast<int>(blockDim.x),
+                                    S - 1)];
+    tx[t] = p.x;
+    ty[t] = p.y;
+    tgt_bounded &= quad_bounded(p.x, p.y);
+    ax[t] = ay[t] = 0.0;
+  }
+
+  const size_t srow = static_cast<size_t>(g) * C;
+  for (int base = c0; base < c1; base += kQuadStage) {
+    const int n = min(kQuadStage, c1 - base);
+    __syncthreads();  // the previous stage is fully consumed
+    bool bounded = tgt_bounded;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const size_t at = srow + base + i;
+      const float x = src_x[at], y = src_y[at];
+      sh_a[i] = make_float4(x, y, src_m[at], src_qxx[at]);
+      sh_b[i] = make_float2(src_qxy[at], src_qyy[at]);
+      bounded &= quad_bounded(x, y);
+    }
+    const bool fast = __syncthreads_and(bounded);
+    for (int j0 = 0; j0 < n; j0 += kRun) {
+      const int j1 = min(j0 + kRun, n);
+      float rx[kQuadTargets] = {}, ry[kQuadTargets] = {};
+      if (fast)
+        quad_run<MODE, true>(sh_a, sh_b, j0, j1, tx, ty, soft2, rx, ry);
+      else
+        quad_run<MODE, false>(sh_a, sh_b, j0, j1, tx, ty, soft2, rx, ry);
+#pragma unroll
+      for (int t = 0; t < kQuadTargets; ++t) {
+        ax[t] = __dadd_rn(ax[t], static_cast<double>(rx[t]));
+        ay[t] = __dadd_rn(ay[t], static_cast<double>(ry[t]));
+      }
+    }
+  }
+  double2* slot = slots + static_cast<size_t>(blockIdx.y) * G * S + trow;
+#pragma unroll
+  for (int t = 0; t < kQuadTargets; ++t) {
+    const int s = s0 + t * static_cast<int>(blockDim.x);
+    if (s < S) slot[s] = make_double2(ax[t], ay[t]);
+  }
+}
+
+// K4's fold: target i = g * S + s adds the slots its chunks wrote, those
+// that start before col_limit[g], in chunk order, and rounds once.
+__global__ void quad_fold(const double2* __restrict__ slots,
+                          const int* __restrict__ col_limit,
+                          float2* __restrict__ out, int G, int S, int C,
+                          int chunk) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t gs = static_cast<size_t>(G) * S;
+  if (i >= gs) return;
+  int limit = C;
+  if (col_limit != nullptr)
+    limit = min(max(col_limit[i / static_cast<size_t>(S)], 0), C);
+  const int chunks = (limit + chunk - 1) / chunk;
+  double ax = 0.0, ay = 0.0;
+  for (int k = 0; k < chunks; ++k) {
+    const double2 p = slots[static_cast<size_t>(k) * gs + i];
+    ax = __dadd_rn(ax, p.x);
+    ay = __dadd_rn(ay, p.y);
+  }
+  out[i] = make_float2(static_cast<float>(ax), static_cast<float>(ay));
+}
+
+// K4's threads per block for S targets per group: S / kQuadTargets rounded
+// up to a warp, at most kQuadThreads.
+int quad_threads(int S) {
+  const int per_thread = (S + kQuadTargets - 1) / kQuadTargets;
+  return min(kQuadThreads, (per_thread + 31) / 32 * 32);
+}
+
+struct QuadArgs {
+  const float2* tgt;
+  const float *sx, *sy, *sm, *qxx, *qxy, *qyy;
+  const int* col_limit;
+  double2* slots;
+  float2* out;
+  int G, S, C, chunk;
   float soft2;
 };
 
-template <int MODE, bool QUAD>
-void launch_form(dim3 grid, int threads, cudaStream_t stream, const Args& a) {
-  grouped_sweep_kernel<MODE, QUAD><<<grid, threads, 0, stream>>>(
-      static_cast<const float2*>(a.tgt), static_cast<const float*>(a.sx),
-      static_cast<const float*>(a.sy), static_cast<const float*>(a.sm),
-      static_cast<const float*>(a.qxx), static_cast<const float*>(a.qxy),
-      static_cast<const float*>(a.qyy), static_cast<const int*>(a.col_limit),
-      static_cast<float2*>(a.out), a.S, a.C, a.soft2);
+template <int MODE>
+int quad_launch(cudaStream_t st, const QuadArgs& a) {
+  const int threads = quad_threads(a.S);
+  const int tpg = (a.S + threads * kQuadTargets - 1) / (threads * kQuadTargets);
+  const int chunks = (a.C + a.chunk - 1) / a.chunk;
+  if (chunks > 0) {
+    quad_sweep_kernel<MODE><<<dim3(a.G * tpg, chunks), threads, 0, st>>>(
+        a.tgt, a.sx, a.sy, a.sm, a.qxx, a.qxy, a.qyy, a.col_limit, a.slots,
+        a.G, a.S, a.C, a.chunk, tpg, a.soft2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t gs = static_cast<size_t>(a.G) * a.S;
+  quad_fold<<<static_cast<unsigned>((gs + 255) / 256), 256, 0, st>>>(
+      a.slots, a.col_limit, a.out, a.G, a.S, a.C, a.chunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MODE>
-void launch(dim3 grid, int threads, cudaStream_t stream, const Args& a) {
-  if (a.qxx != nullptr)
-    launch_form<MODE, true>(grid, threads, stream, a);
-  else
-    launch_form<MODE, false>(grid, threads, stream, a);
+int quad_occupancy(int threads, int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, quad_sweep_kernel<MODE>, threads, 0));
 }
 
 }  // namespace
 
 extern "C" {
 
-// tgt f32[G,S,2], src_{x,y,m} f32[G,C], src_{qxx,qxy,qyy} f32[G,C] (all
-// three, for K4) or null (K3), col_limit i32[G] or null, out f32[G,S,2]; all
-// contiguous on `device`. Launches on `stream` and returns
+// K3. tgt f32[G,S,2], src_{x,y,m} f32[G,C], col_limit i32[G] or null, out
+// f32[G,S,2]; all contiguous on `device`. Launches on `stream` and returns
 // cudaGetLastError() (0 on success) without synchronising.
 int grouped_sweep_launch(const void* tgt, const void* src_x,
                          const void* src_y, const void* src_m,
-                         const void* src_qxx, const void* src_qxy,
-                         const void* src_qyy, const void* col_limit,
-                         void* out, int G, int S, int C, float softening2,
-                         int mode, int device, void* stream) {
+                         const void* col_limit, void* out, int G, int S,
+                         int C, float softening2, int mode, int device,
+                         void* stream) {
   if (G <= 0 || S <= 0) return 0;
-  if ((src_qxx == nullptr) != (src_qxy == nullptr) ||
-      (src_qxx == nullptr) != (src_qyy == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = min(kMaxThreads, (S + 31) / 32 * 32);
   const dim3 grid(G, (S + threads - 1) / threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Args a{tgt,     src_x,   src_y,     src_m, src_qxx, src_qxy,
-               src_qyy, col_limit, out,     S,     C,       softening2};
+#define SWEEP_CASE(M)                                                    \
+  case M:                                                                \
+    grouped_sweep_kernel<M><<<grid, threads, 0, st>>>(                   \
+        static_cast<const float2*>(tgt), static_cast<const float*>(src_x), \
+        static_cast<const float*>(src_y), static_cast<const float*>(src_m), \
+        static_cast<const int*>(col_limit), static_cast<float2*>(out), S,  \
+        C, softening2);                                                  \
+    break;
   switch (mode) {
-    case kExact:
-      launch<kExact>(grid, threads, st, a);
-      break;
-    case kNewton:
-      launch<kNewton>(grid, threads, st, a);
-      break;
-    case kApprox:
-      launch<kApprox>(grid, threads, st, a);
-      break;
-    case kNewtonClamp:
-      launch<kNewtonClamp>(grid, threads, st, a);
-      break;
-    case kApproxClamp:
-      launch<kApproxClamp>(grid, threads, st, a);
-      break;
+    SWEEP_CASE(kExact)
+    SWEEP_CASE(kNewton)
+    SWEEP_CASE(kApprox)
+    SWEEP_CASE(kNewtonClamp)
+    SWEEP_CASE(kApproxClamp)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SWEEP_CASE
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4. tgt f32[G,S,2], src_{x,y,m,qxx,qxy,qyy} f32[G,C], col_limit i32[G] or
+// null, out f32[G,S,2]; slots f64[ceil(C/chunk),G,S,2] scratch, written
+// where a chunk starts before the group's bound and read by the fold; chunk
+// a positive multiple of 32. All contiguous on `device`. Launches the sweep
+// and its fold on `stream` and returns the first CUDA error (0 on success)
+// without synchronising.
+int quad_sweep_launch(const void* tgt, const void* src_x, const void* src_y,
+                      const void* src_m, const void* src_qxx,
+                      const void* src_qxy, const void* src_qyy,
+                      const void* col_limit, void* slots, void* out, int G,
+                      int S, int C, int chunk, float softening2, int mode,
+                      int device, void* stream) {
+  if (G <= 0 || S <= 0) return 0;
+  if (chunk <= 0 || chunk % kRun != 0 || C < 0 ||
+      (C + chunk - 1) / chunk > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const QuadArgs a{static_cast<const float2*>(tgt),
+                   static_cast<const float*>(src_x),
+                   static_cast<const float*>(src_y),
+                   static_cast<const float*>(src_m),
+                   static_cast<const float*>(src_qxx),
+                   static_cast<const float*>(src_qxy),
+                   static_cast<const float*>(src_qyy),
+                   static_cast<const int*>(col_limit),
+                   static_cast<double2*>(slots),
+                   static_cast<float2*>(out),
+                   G, S, C, chunk, softening2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kExact:
+      return quad_launch<kExact>(st, a);
+    case kNewton:
+      return quad_launch<kNewton>(st, a);
+    case kApprox:
+      return quad_launch<kApprox>(st, a);
+    case kNewtonClamp:
+      return quad_launch<kNewtonClamp>(st, a);
+    case kApproxClamp:
+      return quad_launch<kApproxClamp>(st, a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K4's launch shape for S targets per group in rcp mode `mode`: threads per
+// block, targets per thread and resident blocks per SM, into the three
+// pointers; returns the CUDA error (0 on success).
+int quad_sweep_shape(int S, int mode, int device, int* threads, int* targets,
+                     int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = quad_threads(S);
+  *targets = kQuadTargets;
+  switch (mode) {
+    case kExact:
+      return quad_occupancy<kExact>(*threads, blocks);
+    case kNewton:
+      return quad_occupancy<kNewton>(*threads, blocks);
+    case kApprox:
+      return quad_occupancy<kApprox>(*threads, blocks);
+    case kNewtonClamp:
+      return quad_occupancy<kNewtonClamp>(*threads, blocks);
+    case kApproxClamp:
+      return quad_occupancy<kApproxClamp>(*threads, blocks);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -2,11 +2,12 @@
 //
 // The reference's interaction (reference src/main.rs:234-253) is
 //   a_i += m_j * d / (|d|_1 * max(|d|_2^2, softening2)),  d = p_j - p_i,
-// skipped when |d|_1 is not a normal float. Three forms are used:
+// skipped when |d|_1 is not a normal float. These forms are used:
 //   mono_pair  the ordered law of mono_tile (nbody_simulation_tpu/ops/
 //              allpairs.py:52-100): K1 and the Barnes-Hut sweep (K3/K5);
-//   quad_pair  monopole plus quadrupole correction of _quad_tile
-//              (nbody_simulation_tpu/ops/traversal.py:149-207): K4;
+//   quad_den,  monopole plus quadrupole correction of _quad_tile
+//   quad_rcp,  (nbody_simulation_tpu/ops/traversal.py:149-207) in three
+//   quad_terms steps: K4;
 //   sym_den,   the shared pair kernel k(d) of _sym_r (allpairs.py:103-137),
 //   sym_k      in two steps: K2 and K9 apply m_j*d*k to i and -m_i*d*k to j;
 //   pot_term   the counterpart potential of pot_tile (nbody_simulation_tpu/
@@ -23,7 +24,10 @@
 // Every arithmetic step is an explicit round-to-nearest intrinsic so nvcc
 // contracts nothing into an FMA: the terms follow the JAX package's
 // operation order. rcp.approx.f32 is the non-.ftz form, because the
-// s >= FLT_MIN_NORMAL guard assumes subnormal denominators are not flushed.
+// s >= FLT_MIN_NORMAL guard assumes subnormal denominators are not flushed;
+// a kernel takes the .ftz form only where it is bitwise the same (a warp
+// vote on rcp_in_range in K2 and K9, a bound on the coordinates in K4).
+// K6's root is rsqrt.approx (rsqrt_approx).
 // Every max is max_nan, which returns NaN when an operand is NaN, as
 // jnp.maximum does (fmaxf returns the other operand): under +clamp a
 // non-finite position then propagates as NaN, as the JAX kernels document.
@@ -56,6 +60,32 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 __device__ __forceinline__ bool is_normal(float s) {
   return (s >= kFltMinNormal) && (s <= kFltMax);
+}
+
+// The mask's test where |d|_1 is known to be finite or NaN: a BOUNDED
+// caller has proved s <= FLT_MAX for every pair it evaluates (every
+// coordinate within a bound, checked per staged tile), so s >= FLT_MIN_
+// NORMAL alone is is_normal(s), NaN included.
+template <bool BOUNDED>
+__device__ __forceinline__ bool pair_counts(float s) {
+  return BOUNDED ? s >= kFltMinNormal : is_normal(s);
+}
+
+// rcp.approx.f32 (the non-.ftz form) scales a denominator outside [2^-126,
+// 2^126] before and after the hardware reciprocal, which costs each call a
+// range test and two multiplies; inside that range it is the hardware
+// reciprocal alone, which is what rcp.approx.ftz.f32 gives there. So where
+// every x of a warp lies in the range (rcp_in_range), rcp_approx_ftz(x) is
+// bitwise rcp_approx(x) at a third of the instructions.
+__device__ __forceinline__ bool rcp_in_range(float x) {
+  const float a = fabsf(x);
+  return a >= kFltMinNormal && a <= 0x1p126f;  // false for NaN
+}
+
+__device__ __forceinline__ float rcp_approx_ftz(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
 // Ordered law: the contribution (cx, cy) of one source (displacement dx, dy;
@@ -105,28 +135,44 @@ __device__ __forceinline__ void mono_pair(float dx, float dy, float m,
 // as their base mode, with the is_normal mask. The correction is computed
 // for every pair, Q = 0 included, so that where a^3 b overflows 0 * inf
 // gives NaN as the JAX kernel does; it does not scale with m.
-template <int MODE>
-__device__ __forceinline__ void quad_pair(float dx, float dy, float m,
-                                          float qxx, float qxy, float qyy,
-                                          float soft2, float& cx, float& cy) {
-  const float adx = fabsf(dx);
-  const float ady = fabsf(dy);
-  const float s = __fadd_rn(adx, ady);
-  const bool normal = is_normal(s);
-  const float d2 =
-      max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
-  float a, b;
+//
+// In three steps: quad_den gives s = |d|_1 and d2 = max(|d|_2^2, eps);
+// quad_rcp<MODE, FAST> the reciprocals a and b; quad_terms<FAST> the rest.
+// FAST is for a caller that has proved every d2 in [2^-126, 2^126] and s
+// <= 2^126 (K4 checks a bound on the coordinates per staged tile): then
+// rcp.approx.ftz.f32 is bitwise rcp_approx for every pair that the mask
+// keeps (a normal s >= 2^-126; a pair whose s is not normal is selected to
+// 0 whatever a and b are), and the mask is pair_counts<true>.
+__device__ __forceinline__ void quad_den(float dx, float dy, float soft2,
+                                         float& s, float& d2) {
+  s = __fadd_rn(fabsf(dx), fabsf(dy));
+  d2 = max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
+}
+
+template <int MODE, bool FAST>
+__device__ __forceinline__ void quad_rcp(float s, float d2, float& a,
+                                         float& b) {
   if (MODE == kExact) {
     a = __fdiv_rn(1.0f, s);
     b = __fdiv_rn(1.0f, d2);
-  } else {
-    a = rcp_approx(s);
-    b = rcp_approx(d2);
-    if (MODE == kNewton || MODE == kNewtonClamp) {
-      a = __fmul_rn(a, __fsub_rn(2.0f, __fmul_rn(s, a)));
-      b = __fmul_rn(b, __fsub_rn(2.0f, __fmul_rn(d2, b)));
-    }
+    return;
   }
+  a = FAST ? rcp_approx_ftz(s) : rcp_approx(s);
+  b = FAST ? rcp_approx_ftz(d2) : rcp_approx(d2);
+  if (MODE == kNewton || MODE == kNewtonClamp) {
+    a = __fmul_rn(a, __fsub_rn(2.0f, __fmul_rn(s, a)));
+    b = __fmul_rn(b, __fsub_rn(2.0f, __fmul_rn(d2, b)));
+  }
+}
+
+template <bool FAST>
+__device__ __forceinline__ void quad_terms(float dx, float dy, float s,
+                                           float a, float b, float m,
+                                           float qxx, float qxy, float qyy,
+                                           float& cx, float& cy) {
+  const float adx = fabsf(dx);
+  const float ady = fabsf(dy);
+  const bool normal = pair_counts<FAST>(s);
   const float ab = __fmul_rn(a, b);
   const float w = __fmul_rn(m, ab);
   const float sx = dx >= 0.0f ? 1.0f : -1.0f;
@@ -215,34 +261,36 @@ __device__ __forceinline__ float sym_k(float s, float den, float r) {
   return is_normal(s) ? r : 0.0f;
 }
 
-// rcp.approx.f32 (the non-.ftz form) scales a denominator outside [2^-126,
-// 2^126] before and after the hardware reciprocal, which costs each call a
-// range test and two multiplies; inside that range it is the hardware
-// reciprocal alone, which is what rcp.approx.ftz.f32 gives there. So where
-// every x of a warp lies in the range (rcp_in_range), rcp_approx_ftz(x) is
-// bitwise rcp_approx(x) at a third of the instructions.
-__device__ __forceinline__ bool rcp_in_range(float x) {
-  const float a = fabsf(x);
-  return a >= kFltMinNormal && a <= 0x1p126f;  // false for NaN
-}
-
-__device__ __forceinline__ float rcp_approx_ftz(float x) {
+// rsqrt.approx.f32, one MUFU.RSQ (relative error below 2^-22.9, PTX ISA),
+// as the TPU kernel's lax.rsqrt is its chip's hardware approximation. FTZ
+// takes the .ftz form, which is the same result for every normal x and
+// skips the non-.ftz form's scaling of a subnormal x: the potential's x is
+// max(d2, eps), normal whenever eps >= FLT_MIN_NORMAL (or NaN or inf, where
+// both forms agree), so the host picks FTZ from eps.
+template <bool FTZ>
+__device__ __forceinline__ float rsqrt_approx(float x) {
   float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  if (FTZ)
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  else
+    asm("rsqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
 }
 
-// Counterpart potential term -m / sqrt(max(r^2, eps)), 0 where |d|_1 is not
-// normal. __frsqrt_rn is the correctly rounded reciprocal square root, so
-// the term is within 1 ulp of -m/sqrt(d2) (0.5 ulp for the root, 0.5 for
-// the product).
-__device__ __forceinline__ float pot_term(float dx, float dy, float m,
-                                          float soft2) {
+// Counterpart potential term phi = -m / sqrt(max(r^2, eps)) of pot_tile;
+// returns whether the pair counts (|d|_1 a normal float; BOUNDED as
+// pair_counts). A caller adds phi only where it counts, which is the same
+// sum as adding pot_tile's 0: a running sum that starts at +0 is never -0,
+// and r + 0 = r. Every term has the sign of -m, so the approximate root's
+// relative error bounds that of the sum's terms.
+template <bool FTZ, bool BOUNDED>
+__device__ __forceinline__ bool pot_term(float dx, float dy, float m,
+                                         float soft2, float& phi) {
   const float s = __fadd_rn(fabsf(dx), fabsf(dy));
   const float d2 =
       max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
-  const float phi = __fmul_rn(-m, __frsqrt_rn(d2));
-  return is_normal(s) ? phi : 0.0f;
+  phi = __fmul_rn(-m, rsqrt_approx<FTZ>(d2));
+  return pair_counts<BOUNDED>(s);
 }
 
 // Backward law: one pair's share of the vector-Jacobian product of the

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from nbody_simulation_tpu_torch.config import check_rcp
+from nbody_simulation_tpu_torch.ops import split
 from nbody_simulation_tpu_torch.ops.force import (FLT_MAX, FLT_MIN_NORMAL,
                                                   pair_accel)
 
@@ -153,13 +154,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                  ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.allpairs_sym_occupancy.restype = ctypes.c_int
-    lib.allpairs_sym_occupancy.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.allpairs_sym_shape.restype = ctypes.c_int
+    lib.allpairs_sym_shape.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3)
     lib.potential_launch.restype = ctypes.c_int
     lib.potential_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.potential_shape.restype = ctypes.c_int
+    lib.potential_shape.argtypes = (
+        [ctypes.c_float, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
     return lib
 
 
@@ -175,7 +179,6 @@ def _load_lib():
 
 SYM_TILE = 256            # csrc/allpairs.cu: kSymTile, particles per tile
 SYM_WAVES = 16            # resident waves of blocks a launch aims at
-SYM_SCRATCH = 256 << 20   # bytes of f64 slots a call may hold
 
 
 class SymSchedule(NamedTuple):
@@ -231,13 +234,13 @@ def sym_schedule(nt: int, rounds_per_launch: int,
 def sym_rounds_per_launch(nt: int, self_pairs: bool,
                           resident_blocks: int) -> int:
     """Rounds per launch: enough that a launch holds ``SYM_WAVES`` waves of
-    the card's ``resident_blocks``, at most ``SYM_SCRATCH`` bytes of slots
-    (2 sides × nt·256 particles × 16 bytes a round), then evened out over
-    the launches that takes."""
+    the card's ``resident_blocks``, at most ``split.SLOT_SCRATCH`` bytes of
+    slots (2 sides × nt·256 particles × 16 bytes a round), then evened out
+    over the launches that takes."""
     rounds = len(sym_rounds(nt, self_pairs))
     per_round = 2 * nt * SYM_TILE * 16
     r = min(rounds, -(-SYM_WAVES * resident_blocks // nt),
-            max(1, SYM_SCRATCH // per_round))
+            max(1, split.SLOT_SCRATCH // per_round))
     return -(-rounds // -(-rounds // r))
 
 
@@ -260,30 +263,21 @@ def sym_launch_plan(n: int, device: torch.device, rcp: str = "newton",
                     self_pairs: bool = True) -> SymPlan:
     """The launches of K2 (``self_pairs``) or K9 on N (or L) particles on a
     CUDA ``device`` in rcp mode ``rcp``: rounds per launch from the round
-    kernel's resident blocks per SM (``cudaOccupancyMaxActiveBlocksPer
-    Multiprocessor``) and the device's SM count, and the schedule's tables
-    on the device. Built once per (device, tile count, mode, side)."""
+    kernel's resident blocks on the card (``split.launch_shape``), and the
+    schedule's tables on the device. Built once per (device, tile count,
+    mode, side)."""
     mode = check_rcp(rcp)
     device = torch.device(device)
     nt = -(-n // SYM_TILE)
     key = (device, nt, mode, self_pairs)
     if key not in _plans:
-        lib = _load_lib()
-        blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
-        err = lib.allpairs_sym_occupancy(int(self_pairs), mode,
-                                         device.index or 0,
-                                         ctypes.byref(blocks),
-                                         ctypes.byref(threads))
-        if err != 0 or blocks.value <= 0:
-            raise RuntimeError(f"symmetric round kernel occupancy query "
-                               f"failed: CUDA error {err}, "
-                               f"{blocks.value} blocks per SM")
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        r = sym_rounds_per_launch(nt, self_pairs, blocks.value * sms)
+        shape = split.launch_shape(_load_lib().allpairs_sym_shape, device,
+                                   int(self_pairs), mode)
+        r = sym_rounds_per_launch(nt, self_pairs, shape.resident_blocks)
         sch = sym_schedule(nt, r, self_pairs)
         rows = sch.launches.reshape(-1)
         _plans[key] = SymPlan(
-            nt, r, blocks.value, threads.value, sch,
+            nt, r, shape.blocks_per_sm, shape.threads, sch,
             torch.from_numpy(sch.blocks).to(device),
             torch.from_numpy(sch.fold).to(device),
             (ctypes.c_int * len(rows))(*rows.tolist()))

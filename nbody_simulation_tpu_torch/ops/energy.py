@@ -10,15 +10,20 @@ reproduces it. The pair potential is
 with pairs masked by the force law's own is_normal guard on ‖d‖₁.
 
 ``allpairs_potential`` (K6) launches the hand-written kernel of
-``csrc/allpairs.cu`` (``potential_cuda``) on CUDA tensors and runs the
-plain version ``allpairs_potential_ref`` on CPU tensors. The Barnes-Hut
-potential is plain torch, as it is plain XLA in the JAX package.
+``csrc/allpairs.cu`` (``potential_cuda``: chunks of sources across the
+grid, ``potential_plan``, then a fold in chunk order) on CUDA tensors and
+runs the plain version ``allpairs_potential_ref`` on CPU tensors. The
+Barnes-Hut potential is plain torch, as it is plain XLA in the JAX
+package.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from nbody_simulation_tpu_torch.ops import split
 from nbody_simulation_tpu_torch.ops.allpairs import (_load_lib,
                                                      check_cuda_inputs,
                                                      pair_sums)
@@ -49,21 +54,77 @@ def allpairs_potential_ref(pos: torch.Tensor, mass: torch.Tensor,
                      softening2)[:, 0]
 
 
+# -- K6's work split ----------------------------------------------------------
+
+class PotentialPlan(NamedTuple):
+    """K6's grid (``potential_plan``): ``target_blocks`` blocks of
+    ``targets_per_block`` targets, and the sources cut into ``chunks``
+    chunks of ``chunk`` sources (a multiple of ``split.RUN``). Block (target
+    block b, chunk k) sums sources [k·chunk, (k+1)·chunk) for targets
+    [b·targets_per_block, (b+1)·targets_per_block) into slot (k, target);
+    the fold adds a target's slots in chunk order."""
+    targets_per_block: int
+    target_blocks: int
+    chunk: int
+    chunks: int
+
+
+def potential_plan(ni: int, nj: int, targets_per_block: int,
+                   resident_blocks: int) -> PotentialPlan:
+    """K6's grid for Ni targets and Nj sources: ``split.chunk_plan`` over
+    the target blocks, with Ni f64 slots per chunk."""
+    if targets_per_block <= 0 or ni < 0:
+        raise ValueError(f"potential_plan: bad shape Ni={ni} Nj={nj}, "
+                         f"{targets_per_block} targets per block")
+    tb = max(1, -(-ni // targets_per_block))
+    plan = split.chunk_plan(tb, -(-nj // split.RUN), resident_blocks,
+                            8 * max(ni, 1), bounded=False)
+    return PotentialPlan(targets_per_block, tb, *plan)
+
+
+def potential_launch_plan(ni: int, nj: int, device: torch.device,
+                          softening2: float) -> PotentialPlan:
+    """``potential_plan`` on a CUDA ``device`` for the kernel form that
+    ``softening2`` picks, its block read from the built kernel
+    (``split.launch_shape``)."""
+    shape = split.launch_shape(_load_lib().potential_shape, device,
+                               float(softening2))
+    return potential_plan(ni, nj, shape.threads * shape.targets,
+                          shape.resident_blocks)
+
+
+def potential_chunked(lib, pos, src_pos, src_mass, softening2: float,
+                      chunk: int):
+    """Launch K6 and its fold from ``lib`` with the sources cut into chunks
+    of ``chunk``, on checked inputs; returns the CUDA error and the output.
+    The slots are allocated here, uninitialised: the kernel writes every
+    slot the fold reads."""
+    ni, nj = pos.shape[0], src_pos.shape[0]
+    out = torch.empty(ni, dtype=torch.float32, device=pos.device)
+    slots = torch.empty((-(-nj // chunk), ni), dtype=torch.float64,
+                        device=pos.device)
+    err = lib.potential_launch(
+        pos.data_ptr(), src_pos.data_ptr(), src_mass.data_ptr(),
+        slots.data_ptr() if slots.numel() else None, out.data_ptr(), ni, nj,
+        chunk, float(softening2), pos.device.index or 0,
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    return err, out
+
+
 def potential_cuda(pos: torch.Tensor, src_pos: torch.Tensor,
                    src_mass: torch.Tensor,
                    softening2: float = 1e-3) -> torch.Tensor:
-    """Launch K6 (``csrc/allpairs.cu``): targets f32 (Ni, 2) against
-    sources f32 (Nj, 2) with masses f32 (Nj,), contiguous on one CUDA
-    device; returns f32 (Ni,). Anything else raises; there is no fallback.
-    ``potential_cuda.launches`` counts the launches."""
+    """Launch K6 (``csrc/allpairs.cu``) and its fold on the grid of
+    ``potential_launch_plan``: targets f32 (Ni, 2) against sources f32 (Nj,
+    2) with masses f32 (Nj,), contiguous on one CUDA device; returns f32
+    (Ni,). Anything else raises; there is no fallback.
+    ``potential_cuda.launches`` counts the calls."""
     ni, nj = pos.shape[0], src_pos.shape[0]
     check_cuda_inputs("potential_cuda", [(pos, (ni, 2)), (src_pos, (nj, 2)),
                                          (src_mass, (nj,))])
-    out = torch.empty(ni, dtype=torch.float32, device=pos.device)
-    err = _load_lib().potential_launch(
-        pos.data_ptr(), src_pos.data_ptr(), src_mass.data_ptr(),
-        out.data_ptr(), ni, nj, float(softening2), pos.device.index or 0,
-        torch.cuda.current_stream(pos.device).cuda_stream)
+    plan = potential_launch_plan(ni, nj, pos.device, softening2)
+    err, out = potential_chunked(_load_lib(), pos, src_pos, src_mass,
+                                 softening2, plan.chunk)
     if err != 0:
         raise RuntimeError(f"potential kernel launch failed: CUDA error "
                            f"{err} at Ni={ni}, Nj={nj}")

@@ -31,11 +31,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from nbody_simulation_tpu_torch.config import check_rcp
+from nbody_simulation_tpu_torch.ops import split
 from nbody_simulation_tpu_torch.ops.force import (FLT_MAX, FLT_MIN_NORMAL,
                                                   pair_accel)
 from nbody_simulation_tpu_torch.ops.tree import BIG, FlatTree, build_tree
@@ -357,13 +359,99 @@ def _load_sweep_lib():
     global _sweep_lib
     if _sweep_lib is None:
         from nbody_simulation_tpu_torch.cuda_build import load_cuda_library
-        lib = load_cuda_library("grouped_sweep")
-        lib.grouped_sweep_launch.restype = ctypes.c_int
-        lib.grouped_sweep_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        _sweep_lib = lib
+        _sweep_lib = _bind_sweep(load_cuda_library("grouped_sweep"))
     return _sweep_lib
+
+
+def _bind_sweep(lib):
+    """Set the C signatures of ``csrc/grouped_sweep.cu`` on a loaded
+    library."""
+    lib.grouped_sweep_launch.restype = ctypes.c_int
+    lib.grouped_sweep_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.quad_sweep_launch.restype = ctypes.c_int
+    lib.quad_sweep_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.quad_sweep_shape.restype = ctypes.c_int
+    lib.quad_sweep_shape.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3)
+    return lib
+
+
+# -- K4's work split ----------------------------------------------------------
+
+class QuadPlan(NamedTuple):
+    """K4's grid (``quad_sweep_plan``): ``tpg`` blocks of ``threads`` ×
+    ``targets`` targets per group, and each group's columns cut into
+    ``chunks`` chunks of ``chunk`` columns (a multiple of ``split.RUN``).
+    Block (group, target block, chunk k) sums columns [k·chunk,
+    (k+1)·chunk) up to the group's bound; a chunk that starts at or past
+    the bound is skipped, and the fold adds the others in chunk order."""
+    threads: int
+    targets: int
+    tpg: int
+    chunk: int
+    chunks: int
+
+
+def quad_sweep_plan(g: int, s: int, c: int, threads: int, targets: int,
+                    resident_blocks: int) -> QuadPlan:
+    """K4's grid for G groups of S targets and C columns:
+    ``split.chunk_plan`` over the G × ``tpg`` target blocks, with G × S ×
+    16 bytes of slots per chunk, bounded. It depends on the shape alone,
+    not on the per-group bounds, so the bounded sweep's chunks are the full
+    sweep's."""
+    if min(g, s, threads, targets) <= 0 or c < 0:
+        raise ValueError(f"quad_sweep_plan: bad shape G={g} S={s} C={c}, "
+                         f"{threads}x{targets} per block")
+    tpg = -(-s // (threads * targets))
+    plan = split.chunk_plan(g * tpg, -(-c // split.RUN), resident_blocks,
+                            16 * g * s, bounded=True)
+    return QuadPlan(threads, targets, tpg, *plan)
+
+
+def quad_launch_shape(s: int, device: torch.device,
+                      mode: int) -> split.LaunchShape:
+    """K4's block for S targets per group in rcp mode ``mode`` on a CUDA
+    ``device``, read from the built kernel (``split.launch_shape``)."""
+    return split.launch_shape(_load_sweep_lib().quad_sweep_shape, device, s,
+                              mode)
+
+
+def quad_launch_plan(g: int, s: int, c: int, device: torch.device,
+                     mode: int) -> QuadPlan:
+    """``quad_sweep_plan`` for K4 in rcp mode ``mode`` on a CUDA
+    ``device``."""
+    shape = quad_launch_shape(s, device, mode)
+    return quad_sweep_plan(g, s, c, shape.threads, shape.targets,
+                           shape.resident_blocks)
+
+
+def _stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def quad_sweep_chunked(lib, tgt, src_x, src_y, src_m, src_q, col_limit,
+                       softening2: float, mode: int, chunk: int):
+    """Launch K4 and its fold from ``lib`` with columns cut into chunks of
+    ``chunk``, on inputs ``grouped_sweep`` has checked; returns the CUDA
+    error and the output. The slots are allocated here, uninitialised: the
+    kernel writes every slot the fold reads."""
+    g, s, _ = tgt.shape
+    c = src_x.shape[1]
+    out = torch.empty_like(tgt)
+    slots = torch.empty((-(-c // chunk), g, s, 2), dtype=torch.float64,
+                        device=tgt.device)
+    err = lib.quad_sweep_launch(
+        tgt.data_ptr(), src_x.data_ptr(), src_y.data_ptr(), src_m.data_ptr(),
+        *(q.data_ptr() for q in src_q),
+        None if col_limit is None else col_limit.data_ptr(),
+        slots.data_ptr() if slots.numel() else None, out.data_ptr(), g, s, c,
+        chunk, float(softening2), mode, tgt.device.index or 0,
+        _stream_of(tgt))
+    return err, out
 
 
 def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
@@ -372,8 +460,9 @@ def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
                   col_limit: torch.Tensor | None = None,
                   src_q=None) -> torch.Tensor:
     """Launch the CUDA sweep kernel (``csrc/grouped_sweep.cu``): K3, or K4
-    when ``src_q`` = (qxx, qxy, qyy) is given (its law ignores a "+clamp"
-    suffix, as the JAX package's does).
+    and its fold when ``src_q`` = (qxx, qxy, qyy) is given (its law ignores
+    a "+clamp" suffix, as the JAX package's does), on the grid of
+    ``quad_launch_plan``.
 
     CUDA tensors only: tgt f32 (G, S, 2), src_x/src_y/src_m (and src_q) f32
     (G, C), col_limit int32 (G,) or None, all contiguous on one device.
@@ -413,14 +502,19 @@ def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
     if max(g, s, c) >= 2**31 or g * s * 2 >= 2**31 or g * c >= 2**31:
         raise ValueError(f"shape too large for int32 indexing: {g, s, c}")
     lib = _load_sweep_lib()
-    out = torch.empty_like(tgt)
-    qptr = [None] * 3 if src_q is None else [q.data_ptr() for q in src_q]
-    err = lib.grouped_sweep_launch(
-        tgt.data_ptr(), src_x.data_ptr(), src_y.data_ptr(), src_m.data_ptr(),
-        *qptr, None if col_limit is None else col_limit.data_ptr(),
-        out.data_ptr(), g, s, c, float(softening2), mode,
-        tgt.device.index or 0,
-        torch.cuda.current_stream(tgt.device).cuda_stream)
+    if src_q is None:
+        out = torch.empty_like(tgt)
+        err = lib.grouped_sweep_launch(
+            tgt.data_ptr(), src_x.data_ptr(), src_y.data_ptr(),
+            src_m.data_ptr(),
+            None if col_limit is None else col_limit.data_ptr(),
+            out.data_ptr(), g, s, c, float(softening2), mode,
+            tgt.device.index or 0, _stream_of(tgt))
+    else:
+        plan = quad_launch_plan(g, s, c, tgt.device, mode)
+        err, out = quad_sweep_chunked(lib, tgt, src_x, src_y, src_m, src_q,
+                                      col_limit, softening2, mode,
+                                      plan.chunk)
     if err != 0:
         raise RuntimeError(f"grouped_sweep kernel launch failed: CUDA error "
                            f"{err} at G={g}, S={s}, C={c}, rcp={rcp}, "

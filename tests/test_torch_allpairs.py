@@ -317,4 +317,4 @@ def test_sym_rounds_per_launch(nt, self_pairs, resident, want):
     r = tap.sym_rounds_per_launch(nt, self_pairs, resident)
     assert r == want
     assert 2 * r * nt * tap.SYM_TILE * 16 <= max(
-        tap.SYM_SCRATCH, 2 * nt * tap.SYM_TILE * 16)
+        tap.split.SLOT_SCRATCH, 2 * nt * tap.SYM_TILE * 16)

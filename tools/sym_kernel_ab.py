@@ -27,8 +27,8 @@ lane; the tree's own value is the shipped kernel), and on the same inputs:
 - prints each build's registers (``-Xptxas -v``), resident blocks per SM,
   rounds per launch, and the hot loop's instructions per pair
   (``cuobjdump -sass``, as chip_smoke.py counts them);
-- with ``--sweep``, times the tree's kernel under other ``SYM_WAVES`` and
-  ``SYM_SCRATCH`` settings of ``ops/allpairs.py``;
+- with ``--sweep``, times the tree's kernel under other ``SYM_WAVES``
+  (``ops/allpairs.py``) and ``SLOT_SCRATCH`` (``ops/split.py``) settings;
 - with ``--dump DIR``, writes each variant's SASS to DIR.
 
 Prints one JSON object as its last line and, with ``--out FILE``, writes
@@ -40,62 +40,28 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
-import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from _ab_common import (CSRC, MODES, SOFTENING2, build_all, card_log,
+                        dump_sass, finish, in_turns, sass_per_pair, timed_ms)
 
-SOFTENING2 = 1e-3
-MODES = ("exact", "newton", "approx", "newton+clamp", "approx+clamp")
-
-
-def build(src_dir: Path, out: Path, targets: int | None) -> tuple[Path, str]:
-    """nvcc ``src_dir/allpairs.cu`` (with kTargets = ``targets`` unless
-    None) into ``out``; returns the library and ptxas's lines for the
-    symmetric round kernels."""
-    from nbody_simulation_tpu_torch.cuda_build import NVCC_FLAGS, _nvcc
-    work = out.parent / f"{out.stem}_src"
-    work.mkdir(parents=True, exist_ok=True)
-    for f in src_dir.iterdir():
-        if f.suffix in (".cu", ".cuh"):
-            shutil.copy(f, work / f.name)
-    src = work / "allpairs.cu"
-    if targets is not None:
-        text = src.read_text()
-        line = "constexpr int kTargets = "
-        at = text.index(line)
-        end = text.index(";", at)
-        src.write_text(text[:at] + f"{line}{targets}" + text[end:])
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                           str(out), str(src)], capture_output=True,
-                          text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    info, keep = [], False
-    for ln in proc.stderr.splitlines():
-        if "Compiling entry function" in ln:
-            keep = "allpairs_sym_round" in ln and "ILi1E" in ln
-        if keep and ("Compiling entry" in ln or "Used" in ln):
-            info.append(ln.strip())
-    return out, "\n".join(info)
+# The round kernels whose registers ptxas reports (rcp=newton).
+PTXAS_KERNELS = r"allpairs_sym_rounds?ILi1E"
 
 
 def main() -> int:
     import numpy as np
     import torch
 
-    import chip_smoke
     from nbody_simulation_tpu_torch import parallel as par
     from nbody_simulation_tpu_torch.config import SimConfig
     from nbody_simulation_tpu_torch.models.scenarios import (galaxy,
                                                              uniform_disc)
     from nbody_simulation_tpu_torch.ops import allpairs as ap
+    from nbody_simulation_tpu_torch.ops import split
     from nbody_simulation_tpu_torch.ops.force import pair_accel
 
     parser = argparse.ArgumentParser()
@@ -111,24 +77,19 @@ def main() -> int:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sym_kernel_ab: needs a CUDA card")
-    card = chip_smoke.card_line()
+    card, log = card_log()
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    def log(msg):
-        print(f"{msg}  [{card}]", flush=True)
-
     tmp = Path(tempfile.mkdtemp(prefix="sym_ab_"))
     jobs = {"parent": (args.parent / "nbody_simulation_tpu_torch" / "csrc",
-                       None)}
+                       "allpairs", {})}
     for t in args.targets:
-        jobs[f"T{t}"] = (ROOT / "nbody_simulation_tpu_torch" / "csrc", t)
+        jobs[f"T{t}"] = (CSRC, "allpairs", {"kTargets": t})
     for d in args.against:
-        jobs[f"@{d.name}"] = (d / "nbody_simulation_tpu_torch" / "csrc", None)
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        futs = {k: pool.submit(build, d, tmp / f"lib{k}.so", t)
-                for k, (d, t) in jobs.items()}
-        built = {k: f.result() for k, f in futs.items()}
+        jobs[f"@{d.name}"] = (d / "nbody_simulation_tpu_torch" / "csrc",
+                              "allpairs", {})
+    built = build_all(jobs, PTXAS_KERNELS, tmp)
     log(f"built {list(built)} in {time.perf_counter() - t_start:.1f} s")
     report = {"card": card, "variants": {}}
 
@@ -248,7 +209,7 @@ def main() -> int:
 
     for v in libs:
         use(v)
-        info = {"ptxas": built[v][1]}
+        info = {"ptxas": " | ".join(built[v][1])}
         for self_pairs, n in ((True, gpos.shape[0]), (False, l3),
                               (False, l8), (True, l3)):
             plan = ap.sym_launch_plan(n, dev, "newton", self_pairs)
@@ -258,11 +219,8 @@ def main() -> int:
                 "rounds_per_launch": plan.rounds_per_launch,
                 "launches": len(plan.schedule.launches),
                 "blocks_per_launch": int(plan.schedule.launches[:, 1].max())}
-        try:
-            info["sass_per_pair"] = chip_smoke.sass_per_pair(
-                built[v][0], "allpairs_sym_roundsILi1ELb0E")
-        except (RuntimeError, OSError, subprocess.SubprocessError) as e:
-            info["sass_per_pair"] = f"not counted: {e}"
+        info["sass_per_pair"] = sass_per_pair(built[v][0],
+                                              "allpairs_sym_roundsILi1ELb0E")
         bitwise, err = {}, None
         refs = ["parent"] + [k for k in libs if k.startswith("@") and k != v]
         for label, fam, inputs, modes in cases:
@@ -287,11 +245,7 @@ def main() -> int:
             info[f"bitwise_{ref}_in_every_case"] = all(
                 b for k, b in bitwise.items() if k.endswith(f" vs {ref}"))
         if args.dump:
-            args.dump.mkdir(parents=True, exist_ok=True)
-            (args.dump / f"sass_{v}.txt").write_text(
-                subprocess.run([chip_smoke._cuobjdump(), "-sass",
-                                str(built[v][0])], capture_output=True,
-                               text=True, timeout=120, check=True).stdout)
+            dump_sass(built[v][0], args.dump / f"sass_{v}.txt")
         info["bitwise_parent"] = bitwise
         info["max_rel_parent_galaxy_newton"] = err
         report["variants"][v] = info
@@ -303,20 +257,6 @@ def main() -> int:
         log(f"kTargets=1 bitwise the parent in every case: "
             f"{report['T1_bitwise_parent']}")
 
-    def timed_ms(fn, reps, warmup=1):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
-    order = ["parent", *libs, *reversed(libs), "parent"]
     times = {}
     for label, fam, inputs, reps in (
             ("K2 galaxy", k2, (gpos, gmass), 10),
@@ -324,22 +264,21 @@ def main() -> int:
             ("K9 L=51200", k9, (*s3[0], *s3[1]), 20),
             ("K9 L=131072", k9, (*s8[0], *s8[1]), 4),
             ("K2 N=1M", k2, (bpos, bmass), 1)):
-        runs = {v: [] for v in order}
-        for v in order:
-            runs[v].append(timed_ms(lambda: fam(v)(*inputs, "newton"), reps))
-        times[label] = {v: sum(r) / len(r) for v, r in runs.items()}
+        times[label] = in_turns(
+            {v: (lambda v=v: fam(v)(*inputs, "newton"))
+             for v in ["parent", *libs]}, reps)
         log(f"{label} newton ms: " + ", ".join(
             f"{v} {t:.4f}" for v, t in times[label].items()))
     report["ms"] = times
 
     if args.sweep:
         tree = next(v for v in libs if f"kTargets = {v[1:]};" in (
-            ROOT / "nbody_simulation_tpu_torch/csrc/allpairs.cu").read_text())
+            CSRC / "allpairs.cu").read_text())
         sweep = {}
-        base = (ap.SYM_WAVES, ap.SYM_SCRATCH)
+        base = (ap.SYM_WAVES, split.SLOT_SCRATCH)
         for waves in (8, 16, 32):
             for mib in (128, 256, 512):
-                ap.SYM_WAVES, ap.SYM_SCRATCH = waves, mib << 20
+                ap.SYM_WAVES, split.SLOT_SCRATCH = waves, mib << 20
                 plans[tree] = {}
                 row = {}
                 for label, fam, inputs, reps in (
@@ -349,17 +288,11 @@ def main() -> int:
                         lambda: fam(tree)(*inputs, "newton"), reps)
                 sweep[f"waves={waves} scratch={mib}MiB"] = row
                 log(f"sweep {tree} waves={waves} scratch={mib} MiB: {row}")
-        ap.SYM_WAVES, ap.SYM_SCRATCH = base
+        ap.SYM_WAVES, split.SLOT_SCRATCH = base
         plans[tree] = {}
         report["sweep"] = sweep
 
-    report["seconds"] = time.perf_counter() - t_start
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(report, indent=1))
-    shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps(report))
-    return 0
+    return finish(report, args.out, t_start, tmp)
 
 
 if __name__ == "__main__":
