@@ -8,7 +8,14 @@ builds the port's CUDA kernels from ``nbody_simulation_tpu_torch/csrc/``
 (one nvcc per source, all at once) and holds each to its plain PyTorch
 version at the main paths' shapes:
 
-- the Barnes-Hut sweep (K3/K5) at the galaxy's planned shape, then θ=0
+- the Barnes-Hut sweep (K3/K5) in all five rcp modes at the galaxy's
+  planned shape, and in the path's mode at the shapes that
+  ``bh_accel_diff`` (the galaxy and a 1,048,576-body disc) and a P=4
+  ``bh_sharded_accel`` shard give it, at ragged shapes up to S=2048 and at
+  empty ones: bounded == full and two calls bitwise, with its grid,
+  registers and resident blocks; its fast form bitwise its general law on
+  special inputs (NaN, inf and huge coordinates, a coincident pair, a
+  denominator below 2^-126, an inf mass, a tiny softening); then θ=0
   Barnes-Hut against an f64 direct sum;
 - the quadrupole sweep (K4) in all five rcp modes on a 65,536-body
   Plummer cluster at θ=0.5 with mass-weighted leaf COMs, at one leaf per
@@ -73,6 +80,7 @@ Nothing of JAX is imported: the card's machine has none.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import io
 import json
@@ -118,18 +126,19 @@ MUFU_PER_SM_CLK = 16          # reciprocal / rsqrt results per SM and clock
 def law_ops(form: str, rcp: str) -> int:
     """FP32 operations per pair that the pair law itself needs, besides its
     MUFU ops (``law_mufu``), in a form of ``csrc/pair_law.cuh``: "mono",
-    an ordered pair of K1 or K3; "sym", an unordered pair of K2, applied
-    to both sides; "pot", a term of K6; "quad", a pair of K4; "grad_i"
-    and "grad_j", a pair of the target-side (K7a, K8a) and source-side
-    (K7b, K8b) backward sweeps, whose ``rcp`` is always newton. The sums into
-    the accumulators count; loads, loop control and K2's shuffles do not,
-    being the implementation's. Every multiply and add is rounded on its
-    own (the JAX operation order; nvcc contracts nothing into an FMA), so
-    each counts. K4 and K6 count the form they take where every coordinate
-    of a staged tile lies within the kernel's bound, as every input timed
-    here does (|x| ≤ 2^61 and 2^125; a tile outside runs the general form,
-    one compare more). ``exact`` has no count: an IEEE division is no fixed
-    number of operations."""
+    an ordered pair of K1; "sweep", one of K3 (below); "sym", an unordered
+    pair of K2, applied to both sides; "pot", a term of K6; "quad", a pair
+    of K4; "grad_i" and "grad_j", a pair of the target-side (K7a, K8a) and
+    source-side (K7b, K8b) backward sweeps, whose ``rcp`` is always newton.
+    The sums into the accumulators count; loads, loop control and K2's
+    shuffles do not, being the implementation's. Every multiply and add is
+    rounded on its own (the JAX operation order; nvcc contracts nothing
+    into an FMA), so each counts. K3, K4 and K6 count the form they take where every
+    coordinate of a staged tile lies within the kernel's bound, as every
+    input timed here does (K3: 0 or 2^-64 ≤ |x| ≤ 2^40; K4: |x| ≤ 2^61;
+    K6: 2^125; a tile outside runs the general form: K4 and K6 one compare
+    more, K3 two, the mask's second compare and its select). ``exact`` has
+    no count: an IEEE division is no fixed number of operations."""
     base, _, guard = rcp.partition("+")
     if form in ("grad_i", "grad_j"):
         # grad_pair, always newton: d 2 sub; |d|_1 1 add; d2 2 mul, add; κ
@@ -156,6 +165,11 @@ def law_ops(form: str, rcp: str) -> int:
         # is the JAX select's sum (a run sum that starts at +0 is never -0).
         return ops + 2
     ops += {"newton": 3, "approx": 0}[base]  # the Newton step r*(2 - den*r)
+    if form == "sweep":
+        # K3's form where a tile's bound holds (mono_pair_bounded): the mask
+        # 1 compare, the sums under its predicate; max(s, clamp) under
+        # +clamp, as mono.
+        return ops + 1 + 5
     ops += 1 if guard == "clamp" else 3      # max(s, clamp), or the mask
     return ops + (5 if form == "mono" else 10)  # m*r, d*w, sums; per side
 
@@ -206,7 +220,8 @@ def sass_per_pair(lib: Path, function: str) -> tuple[float, float]:
     loop's pairs; the hot loop is the innermost loop (a backward branch
     with no other loop inside) holding the most pairs, less any
     warp-uniform slow path inside it (the code a branch after a VOTE.ALL
-    jumps over)."""
+    jumps over); of two such loops with as many pairs (a kernel's fast and
+    general forms, chosen per tile), the one with fewer instructions."""
     text = sass_text(lib)
     body, name = [], None
     for line in text.splitlines():
@@ -258,7 +273,8 @@ def sass_per_pair(lib: Path, function: str) -> tuple[float, float]:
                     skip.update(range(k + 2, where[label]))
         loop = [instrs[i] for i in range(a, b + 1) if i not in skip]
         pairs = sum(bool(pair_op.search(s)) for s in loop)
-        if pairs and (best is None or pairs > best[2]):
+        if pairs and (best is None or (pairs, -len(loop))
+                      > (best[2], -best[0])):
             best = (len(loop), sum("MUFU." in s for s in loop), pairs)
     if best is None:
         raise RuntimeError(f"no pair loop found in the SASS of {function}")
@@ -286,6 +302,7 @@ def main() -> int:
     from nbody_simulation_tpu_torch.ops import allpairs as ap
     from nbody_simulation_tpu_torch.ops import allpairs_grad as agr
     from nbody_simulation_tpu_torch.ops import energy as en
+    from nbody_simulation_tpu_torch.ops import split
     from nbody_simulation_tpu_torch.ops import traversal
     from nbody_simulation_tpu_torch.ops import traversal_grad as tgr
     from nbody_simulation_tpu_torch.ops.force import direct_accel, pair_accel
@@ -384,14 +401,22 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def abs_sum(tgt, sx, sy, sm, chunk=64):
-        """Σ_j |c_ij| per target and component, for the tolerances."""
+    def abs_sum(tgt, sx, sy, sm, col_limit=None):
+        """Σ_j |c_ij| per target and component (over the columns below
+        ``col_limit``, if given), for the tolerances; groups go in chunks
+        of ~2^24 pairs."""
         out = torch.empty_like(tgt)
+        nc = sx.shape[1]
+        chunk = max(1, (1 << 24) // max(1, tgt.shape[1] * nc))
+        cols = torch.arange(nc, device=tgt.device)
         for g0 in range(0, tgt.shape[0], chunk):
             sl = slice(g0, g0 + chunk)
             ax, ay = pair_accel(sx[sl, None, :] - tgt[sl, :, 0:1],
                                 sy[sl, None, :] - tgt[sl, :, 1:2],
                                 sm[sl, None, :], SOFTENING2)
+            if col_limit is not None:
+                keep = (cols[None, :] < col_limit[sl, None])[:, None, :]
+                ax, ay = (torch.where(keep, a, 0.0) for a in (ax, ay))
             out[sl, :, 0] = ax.abs().sum(-1)
             out[sl, :, 1] = ay.abs().sum(-1)
         return out
@@ -496,6 +521,7 @@ def main() -> int:
             plan_leaves=c.plan_leaves, multipole=c.resolved_multipole())
 
     # -- 2. K3: sweep kernel vs plain version at the main path's shapes -------
+    t_phase = time.perf_counter()
     cfg = SimConfig(force_path="bh")
     *_, (tgt, (sx, sy, sm), _, lim) = path_inputs(
         galaxy(seed=0).to(dev).pad_to(256), cfg)
@@ -508,21 +534,166 @@ def main() -> int:
     log(f"per-group bound: mean last nonzero column "
         f"{lim.float().mean().item():.1f} of {c} "
         f"({lim.sum().item() / (g * c):.3f} of the full sweep's pairs)")
-
-    plain = traversal.grouped_force_ref(tgt, sx, sy, sm, SOFTENING2)
-    scale = abs_sum(tgt, sx, sy, sm)
     main_rcp = cfg.resolved_rcp(bh=True)
-    max_abs_err = {}
-    for rcp in RCP_MODES:
-        full = traversal.grouped_sweep(tgt, sx, sy, sm, SOFTENING2, rcp)
-        bounded = traversal.grouped_sweep(tgt, sx, sy, sm, SOFTENING2, rcp,
-                                          col_limit=lim)
+    main_mode = RCP_MODES.index(main_rcp)
+    sweep_lib = traversal._load_sweep_lib()
+
+    def mono_grid(label, gg, ss, cc, mode):
+        """Log K3's grid for a (G, S, C) call in ``mode``."""
+        plan = traversal.mono_launch_plan(gg, ss, cc, dev, mode)
+        shape = split.launch_shape(sweep_lib.grouped_sweep_shape, dev, ss,
+                                   mode)
+        regs = ctypes.c_int(0)
+        if sweep_lib.grouped_sweep_regs(mode, 0, ctypes.byref(regs)) != 0:
+            raise RuntimeError("grouped_sweep_regs failed")
+        log(f"{label}: K3 grid {gg * plan.tpg} blocks ({plan.tpg} per "
+            f"group) of {plan.threads} threads = {plan.lanes} target lanes "
+            f"x {plan.slices} column slices, {plan.targets} targets per "
+            f"thread; {shape.blocks_per_sm} resident blocks per SM "
+            f"({gg * plan.tpg / shape.resident_blocks:.2f} waves); "
+            f"{regs.value} registers per thread")
+
+    def hold_mono(label, inputs, modes):
+        """K3 against its plain version (exact) on ``inputs`` = (tgt, sx,
+        sy, sm, col_limit) in each of ``modes``: bounded == full and two
+        calls bitwise, within SUM_ORDER_RTOL of sum|c| below the bound.
+        Returns the max |d| per mode."""
+        mt, mx, my, mm, ml = inputs
+        mg, ms_, _ = mt.shape
+        mono_grid(label, mg, ms_, mx.shape[1], RCP_MODES.index(modes[0]))
+        mplain = traversal.grouped_force_ref(mt, mx, my, mm, SOFTENING2,
+                                             col_limit=ml)
+        mscale = abs_sum(mt, mx, my, mm, col_limit=ml)
+        errs = {}
+        for rcp in modes:
+            full = traversal.grouped_sweep(mt, mx, my, mm, SOFTENING2, rcp)
+            bounded = traversal.grouped_sweep(mt, mx, my, mm, SOFTENING2,
+                                              rcp, col_limit=ml)
+            torch.cuda.synchronize()
+            again = traversal.grouped_sweep(mt, mx, my, mm, SOFTENING2, rcp,
+                                            col_limit=ml)
+            torch.cuda.synchronize()
+            if not torch.equal(full.view(torch.int32),
+                               bounded.view(torch.int32)):
+                raise RuntimeError(f"{label} {rcp}: bounded sweep differs "
+                                   "from the full sweep")
+            if not torch.equal(bounded.view(torch.int32),
+                               again.view(torch.int32)):
+                raise RuntimeError(f"{label} {rcp}: two calls on the same "
+                                   "input differ")
+            errs[rcp] = hold(f"{label}: grouped_sweep rcp={rcp} vs plain "
+                             "(exact); bounded == full, two calls bitwise",
+                             bounded, mplain, mscale)
+        return errs
+
+    max_abs_err = hold_mono("galaxy (1024, 256, 1280)", (tgt, sx, sy, sm, lim),
+                            [main_rcp] + [r for r in RCP_MODES
+                                          if r != main_rcp])
+
+    # The other shapes K3 runs at, as the entry points give them: the first
+    # K3 launch of each captured (the recorder launches it as it is).
+    def captured(fn):
+        seen = []
+        real = traversal.mono_sweep
+
+        def record(lib, tg, x_, y_, m_, col_limit, soft2, mode, lanes,
+                   allow_fast=True):
+            if not seen:
+                seen.append(((tg, x_, y_, m_, col_limit), RCP_MODES[mode]))
+            return real(lib, tg, x_, y_, m_, col_limit, soft2, mode, lanes,
+                        allow_fast)
+        traversal.mono_sweep = record
+        try:
+            with torch.no_grad():
+                fn()
+        finally:
+            traversal.mono_sweep = real
+        if not seen:
+            raise RuntimeError("no monopole sweep call was captured")
+        return seen[0]
+
+    from nbody_simulation_tpu_torch import parallel as par
+    gal_k3 = galaxy(seed=0).to(dev)
+    disc_k3 = uniform_disc(N_BIG, seed=0).to(dev)
+    mesh4_k3 = par.LocalMesh(4, dev)
+    st4_k3 = par.shard_state(galaxy(seed=0), mesh4_k3)
+    ms_paths = {}
+    for label, fn in (
+            ("bh_accel_diff galaxy", lambda: tgr.bh_accel_diff(
+                gal_k3.pos, gal_k3.mass)),
+            ("bh_sharded P=4 shard", lambda: par.bh_sharded_accel(
+                st4_k3.pos, st4_k3.mass, mesh4_k3, config=cfg)),
+            (f"bh_accel_diff disc N={N_BIG}", lambda: tgr.bh_accel_diff(
+                disc_k3.pos, disc_k3.mass))):
+        inputs, rcp = captured(fn)
+        label = f"{label} {tuple(inputs[0].shape[:2]) + (inputs[1].shape[1],)}"
+        hold_mono(label, inputs, [rcp])
+        ms_paths[label] = timed_ms(lambda: traversal.grouped_sweep(
+            *inputs[:4], SOFTENING2, rcp, col_limit=inputs[4]), reps=20)
+        log(f"{label}: kernel rcp={rcp} bounded {ms_paths[label]:.4f} ms")
+    del gal_k3, disc_k3, st4_k3, mesh4_k3
+
+    # Ragged shapes, S up to 2048 (ROADMAP's forest rows), and the empty
+    # ones: C=0 writes zeros; G=0 or S=0 launches nothing.
+    krng = np.random.default_rng(4)
+
+    def cloud(gg, ss, cc):
+        ct = torch.tensor(krng.uniform(0, 1e5, (gg, ss, 2)).astype(
+            np.float32), device=dev)
+        cx, cy = (torch.tensor(krng.uniform(0, 1e5, (gg, cc)).astype(
+            np.float32), device=dev) for _ in range(2))
+        cm = torch.tensor(krng.integers(1, 100, (gg, cc)).astype(np.float32),
+                          device=dev)
+        for gi in range(gg):
+            cm[gi, int(krng.integers(0, cc + 1)):] = 0.0
+        return ct, cx, cy, cm, traversal.last_nonzero_columns(cm)
+
+    for shape in ((5, 7, 1), (3, 300, 70), (4, 1, 70), (8, 2048, 1280)):
+        hold_mono(f"ragged {shape}", cloud(*shape), RCP_MODES)
+    for shape in ((4, 16, 0), (0, 16, 32), (4, 0, 32)):
+        ct, cx, cy, cm, _ = cloud(*shape)
+        before = traversal.grouped_sweep.launches
+        out = traversal.grouped_sweep(ct, cx, cy, cm, SOFTENING2, main_rcp)
         torch.cuda.synchronize()
-        if not torch.equal(full, bounded):
-            raise RuntimeError(f"{rcp}: bounded sweep differs from the full "
-                               f"sweep (max {(full - bounded).abs().max()})")
-        max_abs_err[rcp] = hold(f"grouped_sweep rcp={rcp} vs plain (exact); "
-                                "bounded == full bitwise", full, plain, scale)
+        launched = traversal.grouped_sweep.launches - before
+        if out.shape != ct.shape or bool(out.ne(0).any()) or bool(
+                torch.signbit(out).any()) or launched != int(ct.numel() > 0):
+            raise RuntimeError(f"empty shape {shape}: output "
+                               f"{tuple(out.shape)}, launches {launched}")
+        log(f"empty shape {shape}: +0 output of {tuple(out.shape)}, "
+            f"{launched} launches")
+
+    # The special-case set: one call whose groups each hold one special
+    # input, the others within the tile bound (the fast form), against the
+    # same launch with the fast form off, bitwise.
+    ct, cx, cy, cm, _ = cloud(10, 64, 96)
+    cm.clamp_(min=1.0)
+    cx[0, 5] = float("nan")                          # a NaN coordinate
+    cy[1, 6] = float("inf")                          # an inf coordinate
+    cx[2, 7] = 2.0 ** 50                             # |x| = 2^50
+    cx[3, 8], cy[3, 8] = ct[3, 9, 0], ct[3, 9, 1]    # a coincident pair
+    ct[4, 0] = 0.0                                   # den = 2^-117 * 1e-3,
+    cx[4, 0], cy[4, 0] = 2.0 ** -117, 0.0            # in [2^-128, 2^-126)
+    cm[5, 3] = float("inf")                          # an inf mass
+    ct[6, 3, 0] = float("nan")                       # a NaN target
+    climit = traversal.last_nonzero_columns(cm)
+    lanes = traversal.mono_launch_plan(10, 64, 96, dev, main_mode).lanes
+    for soft2 in (SOFTENING2, 1e-30):                # and a tiny softening
+        for mode, rcp in enumerate(RCP_MODES):
+            runs = [traversal.mono_sweep(sweep_lib, ct, cx, cy, cm, climit,
+                                         soft2, mode, lanes, allow_fast=fast)
+                    for fast in (True, False)]
+            torch.cuda.synchronize()
+            if any(err for err, _ in runs) or not torch.equal(
+                    runs[0][1].view(torch.int32),
+                    runs[1][1].view(torch.int32)):
+                raise RuntimeError(f"K3 special cases, eps={soft2:g}, {rcp}:"
+                                   " the fast form differs from the general "
+                                   "law")
+    log("K3 special cases (NaN and inf coordinates, |x|=2^50, a coincident "
+        "pair, den in [2^-128, 2^-126), an inf mass, a NaN target; eps 1e-3 "
+        "and 1e-30) in five modes: the fast form bitwise the general law in "
+        "one call")
 
     ms_full = timed_ms(lambda: traversal.grouped_sweep(
         tgt, sx, sy, sm, SOFTENING2, main_rcp), reps=50)
@@ -534,14 +705,14 @@ def main() -> int:
         tgt, sx, sy, sm, SOFTENING2), reps=5, warmup=1)
     sweep_pairs = float(lim.sum().item()) * s
     sweep_bytes = 4.0 * (3 * lim.sum().item() + 4 * g * s) + 4 * g
-    sweep_bound = bound("mono", main_rcp, sweep_pairs, sweep_bytes,
+    sweep_bound = bound("sweep", main_rcp, sweep_pairs, sweep_bytes,
                         "grouped_sweep",
-                        f"grouped_sweep_kernelILi{RCP_MODES.index(main_rcp)}"
-                        "EE")
+                        f"grouped_sweep_kernelILi{main_mode}EE")
     log(f"sweep time at (1024, 256, 1280): kernel rcp={main_rcp} full "
         f"{ms_full:.4f} ms, bounded {ms_bound:.4f} ms; kernel exact bounded "
         f"{ms_exact:.4f} ms; plain torch {ms_plain:.3f} ms; bound "
         f"{sweep_bound[0]:.4f} ms by {sweep_bound[1]} ({sweep_bound[2]})")
+    log(f"phase monopole sweep: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 2b. K4: quadrupole sweep vs plain version at the θ<2 shapes ----------
     def hold_quad(label, inputs, modes, quad_rcp, reps=10):

@@ -22,7 +22,8 @@
 // What bounds them: K3 at the galaxy's main-path shape (G=1024 groups,
 // S=256 targets, C=1280 columns) reads 15.7 MB of sources once and
 // evaluates 335M pairs (166M within the per-group bounds), each one MUFU
-// reciprocal and 16 FP32 operations of the law at rcp=approx. K4 on the
+// reciprocal and 16 FP32 operations of the law at rcp=approx (14 where a
+// tile's bound drops a compare and the mask's select, below). K4 on the
 // 65,536-body Plummer cluster at θ=0.5 evaluates 1.14e9 pairs (G=1024, S=64,
 // C=17,408 at one leaf per planning row, 8.4e8 within the bounds; G=256,
 // S=256 at the CLI's four, 1.0e9), each two MUFU reciprocals and 98 FP32
@@ -31,11 +32,30 @@
 // by FP32 issue, not memory: chip_smoke.py computes each bound from the
 // card's clock and the law's operation count (PERF.md).
 //
-// K3's design: one thread per target and no reduction across threads. One
-// block per (group, target chunk), the chunk S rounded up to a warp and
-// capped at 256; sums in registers in column order (deterministic, no
-// atomics). The group's source columns are staged through shared memory in
-// tiles of 1024 (12 KB) and read as broadcasts.
+// K3's design. One block per group left K3 to its longest groups: on the
+// galaxy 1024 blocks of 256 threads, one wave, whose ~590 groups of real
+// bodies hold 24 to 40 runs of columns and the rest one, so each SM waited
+// on its heaviest few groups with few warps left. Now each thread holds
+// kMonoTargets targets of its group, which share every staged column (one
+// float4 (x, y, m) and one shared load per column for all of them), and a
+// block of kMonoThreads threads is `lanes` target lanes times `slices`
+// column slices: block (g, b) takes targets [b * lanes * kMonoTargets, ...)
+// of group g, lane l targets l + t * lanes, and slice w the runs of 32
+// columns whose index is w modulo `slices`. The host picks `lanes` from S
+// alone (ops/traversal.py:mono_sweep_plan), so a group's bounded work is
+// spread over `slices` warps and over S / (lanes * kMonoTargets) blocks,
+// and the grid has several short blocks per group. Each slice adds its
+// runs' f32 sums in f64 in run order; the block then adds the slices'
+// partials for each target in slice order in shared memory (no global
+// slots, no second launch, no atomics). The split depends on S alone, not
+// on G, C or col_limit: two calls are bitwise equal, a group's sums do not
+// depend on how many groups a call holds (a P-way sharded call sums as
+// the single-device one), and the bounded sweep is bitwise the full one (a
+// run past the bound adds +0). Each staged tile checks a bound on its
+// coordinates and masses once (__syncthreads_and); a tile within it takes
+// mono_pair_bounded (rcp.approx.ftz.f32, the one-compare mask, a
+// predicated sum), bitwise mono_pair there, and any other tile (a NaN, inf,
+// huge or tiny coordinate, an inf mass, a tiny eps) takes mono_pair.
 //
 // K4's design. One block per group left K4 to the longest group: at the
 // CLI's Plummer shape 256 blocks on 132 SMs, one partial wave, and on the
@@ -78,66 +98,196 @@ namespace {
 
 using namespace pair_law;
 
-constexpr int kMaxThreads = 256;  // K3: targets per block, at most
-constexpr int kTile = 1024;       // K3: source columns staged per pass
-constexpr int kRun = 32;          // columns per inner sum (divides kTile)
+constexpr int kRun = 32;  // columns per inner sum
+
+constexpr int kMonoThreads = 256;  // K3: threads per block
+constexpr int kMonoTargets = 4;    // K3: targets per thread
+constexpr int kMonoStage = 1024;   // K3: columns staged per pass
+// K3: resident blocks per SM that ptxas must allow: 4 caps it at 64
+// registers; left free it takes 90 and 2 blocks per SM, as fast on the
+// galaxy and 17% slower at bh_accel_diff's S=64 (tools/sweep_kernel_ab.py).
+constexpr int kMonoMinBlocks = 4;
+static_assert(kMonoStage % kRun == 0, "a stage holds whole runs");
 
 constexpr int kQuadThreads = 128;  // K4: threads per block, at most
 constexpr int kQuadTargets = 2;    // K4: targets per thread
 constexpr int kQuadStage = 256;    // K4: columns staged per pass
 static_assert(kQuadStage % kRun == 0, "a stage holds whole runs");
 
+// K3's tile bound: a tile takes mono_pair_bounded when every target of the
+// block and every staged column has each coordinate 0 or of magnitude in
+// [2^-64, 2^40] and a finite mass, and eps lies in [2^-39, 2^83]. Every
+// coordinate is then a multiple of 2^-87 (the ulp at 2^-64), so |d|_1 is 0
+// or at least 2^-87, and at most 2^42; |d|_2^2 <= 2^83; so a pair with s !=
+// 0 has s * max(d2, eps) in [2^-87 * 2^-39, 2^42 * 2^83] = [2^-126, 2^125]
+// (and max(s, L1_CLAMP) * max(d2, eps) too), which is what
+// mono_pair_bounded needs. The upper bound is 2^40, not K4's 2^61, because
+// K3 takes one reciprocal of the product.
+constexpr float kMonoCoordLo = 0x1p-64f;
+constexpr float kMonoCoordHi = 0x1p40f;
+constexpr float kMonoSoftLo = 0x1p-39f;
+constexpr float kMonoSoftHi = 0x1p83f;
+
+__device__ __forceinline__ bool mono_coord_bounded(float c) {
+  const float a = fabsf(c);
+  return c == 0.0f || (a >= kMonoCoordLo && a <= kMonoCoordHi);
+}
+
+// One run of K3: staged columns [j0, j1) against the thread's kMonoTargets
+// targets, summed in column order into rx, ry.
+template <int MODE, bool FAST>
+__device__ __forceinline__ void mono_run(const float4* __restrict__ sh,
+                                         int j0, int j1,
+                                         const float (&tx)[kMonoTargets],
+                                         const float (&ty)[kMonoTargets],
+                                         float soft2,
+                                         float (&rx)[kMonoTargets],
+                                         float (&ry)[kMonoTargets]) {
+#pragma unroll 4
+  for (int j = j0; j < j1; ++j) {
+    const float4 p = sh[j];  // x, y, m
+#pragma unroll
+    for (int t = 0; t < kMonoTargets; ++t) {
+      const float dx = __fsub_rn(p.x, tx[t]);
+      const float dy = __fsub_rn(p.y, ty[t]);
+      float cx, cy;
+      if (FAST) {
+        if (mono_pair_bounded<MODE>(dx, dy, p.z, soft2, cx, cy)) {
+          rx[t] = __fadd_rn(rx[t], cx);
+          ry[t] = __fadd_rn(ry[t], cy);
+        }
+      } else {
+        mono_pair<MODE>(dx, dy, p.z, soft2, cx, cy);
+        rx[t] = __fadd_rn(rx[t], cx);
+        ry[t] = __fadd_rn(ry[t], cy);
+      }
+    }
+  }
+}
+
+// Block g * tpg + b, thread w * lanes + l: targets s0 + l + t * lanes (t <
+// kMonoTargets, s0 = b * lanes * kMonoTargets) of group g against the runs
+// w, w + slices, ... of its columns below the bound, then the slices'
+// partials added in slice order. A thread past S computes on target S - 1
+// and writes nothing. allow_fast = false keeps every tile on mono_pair.
 template <int MODE>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMonoThreads, kMonoMinBlocks)
 grouped_sweep_kernel(const float2* __restrict__ tgt,
                      const float* __restrict__ src_x,
                      const float* __restrict__ src_y,
                      const float* __restrict__ src_m,
                      const int* __restrict__ col_limit,
-                     float2* __restrict__ out, int S, int C, float soft2) {
-  constexpr int kCols = 3;
-  __shared__ float sh[kCols][kTile];
+                     float2* __restrict__ out, int S, int C, int lanes,
+                     int tpg, bool allow_fast, float soft2) {
+  constexpr int kT = kMonoTargets;
+  __shared__ union {
+    float4 cols[kMonoStage];         // the staged tile: x, y, m
+    double2 part[kMonoThreads * kT];  // then the slices' partials
+  } sh;
 
-  const int g = blockIdx.x;
-  const int s = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = s < S;
+  const int g = blockIdx.x / tpg;
+  const int per_block = lanes * kT;
+  const int slices = blockDim.x / lanes;
+  const int w = threadIdx.x / lanes;
+  const int l = threadIdx.x - w * lanes;
+  const int s0 = (blockIdx.x - g * tpg) * per_block;
   const size_t trow = static_cast<size_t>(g) * S;
-  const float2 t = live ? tgt[trow + s] : make_float2(0.0f, 0.0f);
+
+  float tx[kT], ty[kT];
+  double ax[kT], ay[kT];
+  bool tgt_bounded =
+      allow_fast && soft2 >= kMonoSoftLo && soft2 <= kMonoSoftHi;
+#pragma unroll
+  for (int t = 0; t < kT; ++t) {
+    const float2 p = tgt[trow + min(s0 + l + t * lanes, S - 1)];
+    tx[t] = p.x;
+    ty[t] = p.y;
+    tgt_bounded &= mono_coord_bounded(p.x) && mono_coord_bounded(p.y);
+    ax[t] = ay[t] = 0.0;
+  }
 
   int limit = C;
   if (col_limit != nullptr) limit = min(max(col_limit[g], 0), C);
   const size_t srow = static_cast<size_t>(g) * C;
-  const float* cols[kCols] = {src_x + srow, src_y + srow, src_m + srow};
-
-  double ax = 0.0, ay = 0.0;
-  for (int base = 0; base < limit; base += kTile) {
-    const int n = min(kTile, limit - base);
+  for (int base = 0; base < limit; base += kMonoStage) {
+    const int n = min(kMonoStage, limit - base);
     __syncthreads();  // the previous tile is fully consumed
+    bool bounded = tgt_bounded;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
-#pragma unroll
-      for (int k = 0; k < kCols; ++k) sh[k][i] = cols[k][base + i];
+      const size_t at = srow + base + i;
+      const float x = src_x[at], y = src_y[at], m = src_m[at];
+      sh.cols[i] = make_float4(x, y, m, 0.0f);
+      bounded &= mono_coord_bounded(x) && mono_coord_bounded(y) &&
+                 fabsf(m) <= kFltMax;
     }
-    __syncthreads();
-    if (live) {
-      for (int j0 = 0; j0 < n; j0 += kRun) {
-        const int j1 = min(j0 + kRun, n);
-        float rx = 0.0f, ry = 0.0f;
-#pragma unroll 4
-        for (int j = j0; j < j1; ++j) {
-          const float dx = __fsub_rn(sh[0][j], t.x);
-          const float dy = __fsub_rn(sh[1][j], t.y);
-          float cx, cy;
-          mono_pair<MODE>(dx, dy, sh[2][j], soft2, cx, cy);
-          rx = __fadd_rn(rx, cx);
-          ry = __fadd_rn(ry, cy);
-        }
-        ax = __dadd_rn(ax, static_cast<double>(rx));
-        ay = __dadd_rn(ay, static_cast<double>(ry));
+    const bool fast = __syncthreads_and(bounded);
+    // This slice's runs of the tile: global run index = w modulo slices.
+    const int first = (w - (base / kRun) % slices + slices) % slices;
+    for (int j0 = first * kRun; j0 < n; j0 += slices * kRun) {
+      const int j1 = min(j0 + kRun, n);
+      float rx[kT] = {}, ry[kT] = {};
+      if (fast)
+        mono_run<MODE, true>(sh.cols, j0, j1, tx, ty, soft2, rx, ry);
+      else
+        mono_run<MODE, false>(sh.cols, j0, j1, tx, ty, soft2, rx, ry);
+#pragma unroll
+      for (int t = 0; t < kT; ++t) {
+        ax[t] = __dadd_rn(ax[t], static_cast<double>(rx[t]));
+        ay[t] = __dadd_rn(ay[t], static_cast<double>(ry[t]));
       }
     }
   }
-  if (live)
-    out[trow + s] = make_float2(static_cast<float>(ax), static_cast<float>(ay));
+
+  __syncthreads();  // the last tile is consumed: its memory takes partials
+#pragma unroll
+  for (int t = 0; t < kT; ++t)
+    sh.part[w * per_block + l + t * lanes] = make_double2(ax[t], ay[t]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < per_block; i += blockDim.x) {
+    double sx = 0.0, sy = 0.0;
+    for (int k = 0; k < slices; ++k) {
+      const double2 p = sh.part[k * per_block + i];
+      sx = __dadd_rn(sx, p.x);
+      sy = __dadd_rn(sy, p.y);
+    }
+    if (s0 + i < S)
+      out[trow + s0 + i] =
+          make_float2(static_cast<float>(sx), static_cast<float>(sy));
+  }
+}
+
+struct MonoArgs {
+  const float2* tgt;
+  const float *sx, *sy, *sm;
+  const int* col_limit;
+  float2* out;
+  int G, S, C, lanes;
+  bool allow_fast;
+  float soft2;
+};
+
+template <int MODE>
+int mono_launch(cudaStream_t st, const MonoArgs& a) {
+  const int tpg = (a.S + a.lanes * kMonoTargets - 1) / (a.lanes * kMonoTargets);
+  grouped_sweep_kernel<MODE><<<a.G * tpg, kMonoThreads, 0, st>>>(
+      a.tgt, a.sx, a.sy, a.sm, a.col_limit, a.out, a.S, a.C, a.lanes, tpg,
+      a.allow_fast, a.soft2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int mono_occupancy(int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, grouped_sweep_kernel<MODE>, kMonoThreads, 0));
+}
+
+template <int MODE>
+int mono_regs(int* regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, grouped_sweep_kernel<MODE>);
+  *regs = attr.numRegs;
+  return static_cast<int>(err);
 }
 
 // K4's stage bound: a stage takes the fast form of the law (FAST in
@@ -328,38 +478,92 @@ int quad_occupancy(int threads, int* blocks) {
 extern "C" {
 
 // K3. tgt f32[G,S,2], src_{x,y,m} f32[G,C], col_limit i32[G] or null, out
-// f32[G,S,2]; all contiguous on `device`. Launches on `stream` and returns
-// cudaGetLastError() (0 on success) without synchronising.
+// f32[G,S,2]; all contiguous on `device`. `lanes` (a divisor of the block's
+// threads, grouped_sweep_shape) target lanes per block, the rest of the
+// block's threads column slices; allow_fast 0 keeps every tile on the
+// general law. Launches on `stream` and returns cudaGetLastError() (0 on
+// success) without synchronising.
 int grouped_sweep_launch(const void* tgt, const void* src_x,
                          const void* src_y, const void* src_m,
                          const void* col_limit, void* out, int G, int S,
-                         int C, float softening2, int mode, int device,
-                         void* stream) {
+                         int C, int lanes, int allow_fast, float softening2,
+                         int mode, int device, void* stream) {
   if (G <= 0 || S <= 0) return 0;
+  if (C < 0 || lanes <= 0 || lanes > kMonoThreads ||
+      kMonoThreads % lanes != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = min(kMaxThreads, (S + 31) / 32 * 32);
-  const dim3 grid(G, (S + threads - 1) / threads);
+  const MonoArgs a{static_cast<const float2*>(tgt),
+                   static_cast<const float*>(src_x),
+                   static_cast<const float*>(src_y),
+                   static_cast<const float*>(src_m),
+                   static_cast<const int*>(col_limit),
+                   static_cast<float2*>(out),
+                   G, S, C, lanes, allow_fast != 0, softening2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SWEEP_CASE(M)                                                    \
-  case M:                                                                \
-    grouped_sweep_kernel<M><<<grid, threads, 0, st>>>(                   \
-        static_cast<const float2*>(tgt), static_cast<const float*>(src_x), \
-        static_cast<const float*>(src_y), static_cast<const float*>(src_m), \
-        static_cast<const int*>(col_limit), static_cast<float2*>(out), S,  \
-        C, softening2);                                                  \
-    break;
   switch (mode) {
-    SWEEP_CASE(kExact)
-    SWEEP_CASE(kNewton)
-    SWEEP_CASE(kApprox)
-    SWEEP_CASE(kNewtonClamp)
-    SWEEP_CASE(kApproxClamp)
+    case kExact:
+      return mono_launch<kExact>(st, a);
+    case kNewton:
+      return mono_launch<kNewton>(st, a);
+    case kApprox:
+      return mono_launch<kApprox>(st, a);
+    case kNewtonClamp:
+      return mono_launch<kNewtonClamp>(st, a);
+    case kApproxClamp:
+      return mono_launch<kApproxClamp>(st, a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef SWEEP_CASE
-  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's launch shape in rcp mode `mode` (S is not used: the block is
+// always kMonoThreads threads): threads per block, targets per thread and
+// resident blocks per SM, into the three pointers; returns the CUDA error
+// (0 on success).
+int grouped_sweep_shape(int S, int mode, int device, int* threads,
+                        int* targets, int* blocks) {
+  (void)S;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = kMonoThreads;
+  *targets = kMonoTargets;
+  switch (mode) {
+    case kExact:
+      return mono_occupancy<kExact>(blocks);
+    case kNewton:
+      return mono_occupancy<kNewton>(blocks);
+    case kApprox:
+      return mono_occupancy<kApprox>(blocks);
+    case kNewtonClamp:
+      return mono_occupancy<kNewtonClamp>(blocks);
+    case kApproxClamp:
+      return mono_occupancy<kApproxClamp>(blocks);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K3's registers per thread in rcp mode `mode`, into `regs`; returns the
+// CUDA error (0 on success).
+int grouped_sweep_regs(int mode, int device, int* regs) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (mode) {
+    case kExact:
+      return mono_regs<kExact>(regs);
+    case kNewton:
+      return mono_regs<kNewton>(regs);
+    case kApprox:
+      return mono_regs<kApprox>(regs);
+    case kNewtonClamp:
+      return mono_regs<kNewtonClamp>(regs);
+    case kApproxClamp:
+      return mono_regs<kApproxClamp>(regs);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K4. tgt f32[G,S,2], src_{x,y,m,qxx,qxy,qyy} f32[G,C], col_limit i32[G] or

@@ -4,7 +4,9 @@
 //   a_i += m_j * d / (|d|_1 * max(|d|_2^2, softening2)),  d = p_j - p_i,
 // skipped when |d|_1 is not a normal float. These forms are used:
 //   mono_pair  the ordered law of mono_tile (nbody_simulation_tpu/ops/
-//              allpairs.py:52-100): K1 and the Barnes-Hut sweep (K3/K5);
+//              allpairs.py:52-100): K1 and the Barnes-Hut sweep (K3/K5),
+//              whose tiles within a coordinate bound take its bitwise-equal
+//              form mono_pair_bounded;
 //   quad_den,  monopole plus quadrupole correction of _quad_tile
 //   quad_rcp,  (nbody_simulation_tpu/ops/traversal.py:149-207) in three
 //   quad_terms steps: K4;
@@ -26,7 +28,8 @@
 // operation order. rcp.approx.f32 is the non-.ftz form, because the
 // s >= FLT_MIN_NORMAL guard assumes subnormal denominators are not flushed;
 // a kernel takes the .ftz form only where it is bitwise the same (a warp
-// vote on rcp_in_range in K2 and K9, a bound on the coordinates in K4).
+// vote on rcp_in_range in K2 and K9, a bound on the coordinates in K4, and
+// in K3 mono_pair_bounded under the bound of grouped_sweep.cu).
 // K6's root is rsqrt.approx (rsqrt_approx).
 // Every max is max_nan, which returns NaN when an operand is NaN, as
 // jnp.maximum does (fmaxf returns the other operand): under +clamp a
@@ -122,6 +125,41 @@ __device__ __forceinline__ void mono_pair(float dx, float dy, float m,
     cx = __fmul_rn(dx, w);
     cy = __fmul_rn(dy, w);
   }
+}
+
+// mono_pair where the caller has proved, for every pair it evaluates, that
+// |d|_1 is 0 or lies in [2^-87, 2^42], that |d|_2^2 <= 2^83, that eps lies
+// in [2^-39, 2^83] and that m is finite (K3 checks a bound on the
+// coordinates and masses per staged tile, grouped_sweep.cu). Then the
+// denominator of every pair with s != 0 lies in [2^-126, 2^125], where
+// rcp.approx.ftz.f32 is bitwise rcp_approx, and is_normal(s) is s >=
+// FLT_MIN_NORMAL. Returns whether the pair counts; the caller adds (cx, cy)
+// only then. Where mono_pair masks a pair it gives dx * (m * 0) (or 0 in
+// `exact`), which is +-0 for a finite m and dx, and a run sum that starts
+// at +0 is never -0, so skipping that add is bitwise adding it. In the
+// +clamp modes every pair counts, as in mono_pair.
+template <int MODE>
+__device__ __forceinline__ bool mono_pair_bounded(float dx, float dy, float m,
+                                                  float soft2, float& cx,
+                                                  float& cy) {
+  const float s = __fadd_rn(fabsf(dx), fabsf(dy));
+  const float d2 =
+      max_nan(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), soft2);
+  if (MODE == kExact) {
+    const float den = __fmul_rn(s, d2);
+    cx = __fdiv_rn(__fmul_rn(dx, m), den);
+    cy = __fdiv_rn(__fmul_rn(dy, m), den);
+    return s >= kFltMinNormal;
+  }
+  constexpr bool kClamp = MODE == kNewtonClamp || MODE == kApproxClamp;
+  const float den = __fmul_rn(kClamp ? max_nan(s, kL1Clamp) : s, d2);
+  float r = rcp_approx_ftz(den);
+  if (MODE == kNewton || MODE == kNewtonClamp)
+    r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(den, r)));
+  const float w = __fmul_rn(m, r);
+  cx = __fmul_rn(dx, w);
+  cy = __fmul_rn(dy, w);
+  return kClamp || s >= kFltMinNormal;
 }
 
 // Monopole + quadrupole law: the contribution (cx, cy) of a source node

@@ -368,8 +368,14 @@ def _bind_sweep(lib):
     library."""
     lib.grouped_sweep_launch.restype = ctypes.c_int
     lib.grouped_sweep_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.grouped_sweep_shape.restype = ctypes.c_int
+    lib.grouped_sweep_shape.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3)
+    lib.grouped_sweep_regs.restype = ctypes.c_int
+    lib.grouped_sweep_regs.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)])
     lib.quad_sweep_launch.restype = ctypes.c_int
     lib.quad_sweep_launch.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
@@ -378,6 +384,69 @@ def _bind_sweep(lib):
     lib.quad_sweep_shape.argtypes = (
         [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3)
     return lib
+
+
+# -- K3's work split ----------------------------------------------------------
+
+# K3: target lanes per block, at most (32: 2 blocks of 8 slices per galaxy
+# group; 16 and 64 were no faster there, tools/sweep_kernel_ab.py).
+MONO_LANES = 32
+
+
+class MonoPlan(NamedTuple):
+    """K3's grid (``mono_sweep_plan``): blocks of ``threads`` threads,
+    ``lanes`` target lanes times ``slices`` column slices, each thread
+    ``targets`` targets, ``tpg`` blocks per group. Block (g, b), thread
+    (slice w, lane l) sums targets b·lanes·targets + l + t·lanes (t <
+    targets) against the runs of 32 columns w, w + slices, … below the
+    group's bound; the block adds the slices' partials in slice order."""
+    threads: int
+    targets: int
+    lanes: int
+    slices: int
+    tpg: int
+
+
+def mono_sweep_plan(g: int, s: int, c: int, threads: int,
+                    targets: int) -> MonoPlan:
+    """K3's grid for G groups of S targets and C columns: S / targets
+    lanes, rounded up to a power of two, at most ``MONO_LANES`` and
+    ``threads`` (a power of two), and the block's other threads column
+    slices. It depends on S alone, not on G, C or the per-group bounds, so
+    the bounded sweep adds the full sweep's runs in the same order, and a
+    group sums alike in a call of any G."""
+    if min(g, s, threads, targets) <= 0 or c < 0 or threads & (threads - 1):
+        raise ValueError(f"mono_sweep_plan: bad shape G={g} S={s} C={c}, "
+                         f"{threads}x{targets} per block")
+    lanes = min(MONO_LANES, threads, 1 << (-(-s // targets) - 1).bit_length())
+    return MonoPlan(threads, targets, lanes, threads // lanes,
+                    -(-s // (lanes * targets)))
+
+
+def mono_launch_plan(g: int, s: int, c: int, device: torch.device,
+                     mode: int) -> MonoPlan:
+    """``mono_sweep_plan`` for K3 in rcp mode ``mode`` on a CUDA
+    ``device``, with the block read from the built kernel
+    (``split.launch_shape``)."""
+    shape = split.launch_shape(_load_sweep_lib().grouped_sweep_shape, device,
+                               s, mode)
+    return mono_sweep_plan(g, s, c, shape.threads, shape.targets)
+
+
+def mono_sweep(lib, tgt, src_x, src_y, src_m, col_limit, softening2: float,
+               mode: int, lanes: int, allow_fast: bool = True):
+    """Launch K3 from ``lib`` with ``lanes`` target lanes per block, on
+    inputs ``grouped_sweep`` has checked; returns the CUDA error and the
+    output. ``allow_fast=False`` keeps every tile on the general law (the
+    bitwise reference of the fast form's)."""
+    g, s, _ = tgt.shape
+    out = torch.empty_like(tgt)
+    err = lib.grouped_sweep_launch(
+        tgt.data_ptr(), src_x.data_ptr(), src_y.data_ptr(), src_m.data_ptr(),
+        None if col_limit is None else col_limit.data_ptr(), out.data_ptr(),
+        g, s, src_x.shape[1], lanes, int(allow_fast), float(softening2),
+        mode, tgt.device.index or 0, _stream_of(tgt))
+    return err, out
 
 
 # -- K4's work split ----------------------------------------------------------
@@ -459,10 +528,10 @@ def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
                   rcp: str = "approx",
                   col_limit: torch.Tensor | None = None,
                   src_q=None) -> torch.Tensor:
-    """Launch the CUDA sweep kernel (``csrc/grouped_sweep.cu``): K3, or K4
-    and its fold when ``src_q`` = (qxx, qxy, qyy) is given (its law ignores
-    a "+clamp" suffix, as the JAX package's does), on the grid of
-    ``quad_launch_plan``.
+    """Launch the CUDA sweep kernel (``csrc/grouped_sweep.cu``): K3 on the
+    grid of ``mono_launch_plan``, or K4 and its fold when ``src_q`` = (qxx,
+    qxy, qyy) is given (its law ignores a "+clamp" suffix, as the JAX
+    package's does), on the grid of ``quad_launch_plan``.
 
     CUDA tensors only: tgt f32 (G, S, 2), src_x/src_y/src_m (and src_q) f32
     (G, C), col_limit int32 (G,) or None, all contiguous on one device.
@@ -501,15 +570,13 @@ def grouped_sweep(tgt: torch.Tensor, src_x: torch.Tensor, src_y: torch.Tensor,
             raise ValueError(f"grouped_sweep needs float32, got {t.dtype}")
     if max(g, s, c) >= 2**31 or g * s * 2 >= 2**31 or g * c >= 2**31:
         raise ValueError(f"shape too large for int32 indexing: {g, s, c}")
+    if src_q is None and g * s == 0:
+        return torch.empty_like(tgt)  # no target: nothing to launch
     lib = _load_sweep_lib()
     if src_q is None:
-        out = torch.empty_like(tgt)
-        err = lib.grouped_sweep_launch(
-            tgt.data_ptr(), src_x.data_ptr(), src_y.data_ptr(),
-            src_m.data_ptr(),
-            None if col_limit is None else col_limit.data_ptr(),
-            out.data_ptr(), g, s, c, float(softening2), mode,
-            tgt.device.index or 0, _stream_of(tgt))
+        plan = mono_launch_plan(g, s, c, tgt.device, mode)
+        err, out = mono_sweep(lib, tgt, src_x, src_y, src_m, col_limit,
+                              softening2, mode, plan.lanes)
     else:
         plan = quad_launch_plan(g, s, c, tgt.device, mode)
         err, out = quad_sweep_chunked(lib, tgt, src_x, src_y, src_m, src_q,

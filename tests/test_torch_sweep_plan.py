@@ -1,21 +1,28 @@
-"""The work split of the quadrupole sweep (K4) and the potential sweep (K6).
+"""The work split of the Barnes-Hut sweeps (K3 and K4) and the potential
+sweep (K6).
 
-Both CUDA kernels cut their columns (K4) or sources (K6) into chunks of
-whole 32-term runs across the grid, write f64 partial sums to one slot per
-(chunk, target) and fold the slots in chunk order. The chunk sizes come
-from ``ops/split.py:chunk_plan``, through ``ops/traversal.py:
-quad_sweep_plan`` and ``ops/energy.py:potential_plan``, plain Python that
-these tests reach. The kernels run only
-on a card (chip_smoke.py and tools/sweep_kernel_ab.py hold them to their
-plain versions and to the earlier kernels there); here the plans are held
-to their contract, and the kernels' order is played back in f64 on a small
-seeded input against the JAX package's kernels (interpret mode) and the
-port's plain versions.
+K3 (the monopole sweep) spreads each group over blocks of target lanes
+times column slices: ``ops/traversal.py:mono_sweep_plan`` picks the lanes
+from S alone, each slice takes the runs of 32 columns whose index is its
+own modulo the slices, adds their f32 sums in f64, and the block adds the
+slices' partials in slice order. K4 and K6 cut their columns (K4) or
+sources (K6) into chunks of whole 32-term runs across the grid, write f64
+partial sums to one slot per (chunk, target) and fold the slots in chunk
+order. The chunk sizes come from ``ops/split.py:chunk_plan``, through
+``ops/traversal.py:quad_sweep_plan`` and ``ops/energy.py:potential_plan``,
+plain Python that these tests reach. The kernels run only on a card
+(chip_smoke.py and tools/sweep_kernel_ab.py hold them to their plain
+versions and to the earlier kernels there); here the plans are held to
+their contract, and the kernels' order is played back on a small seeded
+input against the JAX package's kernels (interpret mode) and the port's
+plain versions.
 
-Tolerances: the playback sums every term in f64, the plain versions and the
-JAX kernels in f32 in other orders, so they agree within a sum-order error:
-1e-5 of Σ_j (|dx·w| + |corr|) per target and component for K4, 1e-5
-relative per target for K6 (every potential term has the sign of −m).
+Tolerances: the playback sums in the kernels' order (K3: f32 runs, f64
+across them; K4 and K6: every term in f64), the plain versions and the JAX
+kernels in f32 in other orders, so they agree within a sum-order error:
+1e-5 of Σ_j |c_ij| per target and component for K3, of Σ_j (|dx·w| +
+|corr|) for K4, and 1e-5 relative per target for K6 (every potential term
+has the sign of −m).
 """
 
 import ctypes
@@ -29,6 +36,7 @@ from nbody_simulation_tpu.models.scenarios import plummer as jplummer
 from nbody_simulation_tpu.ops import energy as jen
 from nbody_simulation_tpu.ops import traversal as jtrav
 from nbody_simulation_tpu_torch.ops import energy as ten
+from nbody_simulation_tpu_torch.ops.force import pair_accel
 from nbody_simulation_tpu_torch.ops import split
 from nbody_simulation_tpu_torch.ops import traversal as ttrav
 
@@ -110,6 +118,162 @@ def test_launch_shape_asks_each_query_once(monkeypatch):
     assert asked == [(256, 0), (64, 0)]
     with pytest.raises(RuntimeError, match="resident blocks"):
         split.launch_shape(query, "cuda:0", -1)
+
+
+# -- K3 -----------------------------------------------------------------------
+
+MONO_STAGE = 1024  # csrc/grouped_sweep.cu: kMonoStage, columns per staged tile
+
+
+def _mono_threads(plan, g, s, limits):
+    """K3's threads as the kernel runs them: (group, block, slice, its
+    targets, its runs in the order it adds them). The slice's runs come
+    from the kernel's loop over staged tiles: in the tile at column base,
+    slice w starts at local run (w - (base / 32) mod slices) mod slices
+    and steps by slices."""
+    per_block = plan.lanes * plan.targets
+    for gi in range(g):
+        limit = int(limits[gi])
+        for w in range(plan.slices):
+            runs = []
+            for base in range(0, limit, MONO_STAGE):
+                n = min(MONO_STAGE, limit - base)
+                first = (w - (base // RUN) % plan.slices) % plan.slices
+                runs += [(base + j0) // RUN
+                         for j0 in range(first * RUN, n, plan.slices * RUN)]
+            for b in range(plan.tpg):
+                for lane in range(plan.lanes):
+                    tg = [b * per_block + lane + k * plan.lanes
+                          for k in range(plan.targets)]
+                    yield gi, b, w, [x for x in tg if x < s], runs
+
+
+MONO_SHAPES = [
+    (1024, 256, 1280),   # the galaxy's θ=50 main path
+    (4096, 64, 1472),    # bh_accel_diff on the galaxy
+    (1024, 64, 1280),    # a P=4 bh_sharded_accel shard
+    (16384, 64, 1600),   # bh_accel_diff on the 1,048,576-body disc
+    (8, 2048, 1280),     # S = FOREST_ROW_LEAVES rows
+    (2, 256, 3000),      # three staged tiles
+    (5, 7, 1), (3, 300, 70), (4, 1, 70), (4, 16, 0)]   # ragged and empty
+
+
+@pytest.mark.parametrize("g,s,c", MONO_SHAPES)
+def test_mono_plan_covers_every_run_once(g, s, c):
+    """Every (group, target, 32-column run) below the group's bound is
+    summed by exactly one thread, none past it; each thread adds its runs
+    in column order; a run's slice does not move with the bound (the
+    bounded sweep adds the full sweep's runs, less +0 ones); the block is
+    lanes × slices threads. Up to 40 groups are played (the plan does not
+    depend on G)."""
+    plan = ttrav.mono_sweep_plan(g, s, c, 256, 4)
+    assert plan.lanes * plan.slices == plan.threads == 256
+    assert plan.lanes & (plan.lanes - 1) == 0
+    per_block = plan.lanes * plan.targets
+    assert plan.tpg * per_block >= s > (plan.tpg - 1) * per_block
+    gp = min(g, 40)
+    rng = np.random.default_rng(g + s + c)
+    limits = rng.integers(0, c + 1, gp)
+    limits[0] = c
+    if gp > 1:
+        limits[1] = 0
+    runs_c = -(-c // RUN)
+    cover = np.zeros((gp, s, max(1, runs_c)), dtype=np.int64)
+    full = {(gi, w): runs
+            for gi, _, w, _, runs in _mono_threads(plan, gp, s, [c] * gp)}
+    for gi, _, w, targets, runs in _mono_threads(plan, gp, s, limits):
+        assert runs == sorted(runs)
+        bound_runs = -(-int(limits[gi]) // RUN)
+        assert runs == [r for r in full[gi, w] if r < bound_runs]
+        assert all(r % plan.slices == w for r in runs)
+        if targets and runs:
+            cover[gi][np.ix_(targets, runs)] += 1
+    for gi in range(gp):
+        bound_runs = -(-int(limits[gi]) // RUN)
+        assert (cover[gi, :, :bound_runs] == 1).all()
+        assert not cover[gi, :, bound_runs:].any()
+
+
+def test_mono_plan_depends_on_s_alone():
+    """The lanes and slices, so the order of every group's sums, depend on
+    S alone: a P-way sharded call (G/P groups) and a bounded or narrower
+    call sum a group as the single-device full sweep does; the main
+    shapes get several blocks per group or many groups per wave."""
+    for s in (1, 7, 64, 256, 300, 2048):
+        plans = {ttrav.mono_sweep_plan(g, s, c, 256, 4)
+                 for g in (1, 1024, 4096) for c in (0, 70, 1280)}
+        assert len(plans) == 1
+    gal = ttrav.mono_sweep_plan(1024, 256, 1280, 256, 4)
+    assert (gal.lanes, gal.slices, gal.tpg) == (32, 8, 2)
+    diff = ttrav.mono_sweep_plan(4096, 64, 1472, 256, 4)
+    assert (diff.lanes, diff.slices, diff.tpg) == (16, 16, 1)
+    assert ttrav.mono_sweep_plan(8, 2048, 1280, 256, 4).tpg == 16
+
+
+def _mono_scene(seed):
+    rng = np.random.default_rng(seed)
+    g, s, c = 4, 40, 300
+    tgt = rng.uniform(0, 1e5, (g, s, 2)).astype(np.float32)
+    sx, sy = rng.uniform(0, 1e5, (2, g, c)).astype(np.float32)
+    sm = rng.integers(1, 100, (g, c)).astype(np.float32)
+    sm[0, 3] = 7.5e7  # a heavy node among light ones
+    # Bounds: the full width, none, a partial run, a whole number of runs.
+    for gi, last in ((1, 0), (2, 77), (3, 160)):
+        sm[gi, last:] = 0.0
+    sx[0, 0], sy[0, 0] = tgt[0, 0]  # a coincident pair, masked
+    return tgt, sx, sy, sm
+
+
+def test_mono_playback_matches_jax_and_plain():
+    """K3's order played back (terms by the plain law; each run summed in
+    f32 in column order, a slice's runs in f64 in run order, the slices in
+    f64 in slice order, then rounded once) at a plan of 2 slices of 16
+    lanes, against JAX ``_grouped_force`` (interpret) and
+    ``grouped_force_ref``, within 1e-5 of Σ|c|; a bound of 0 gives +0."""
+    tgt, sx, sy, sm = _mono_scene(6)
+    g, s, c = sm.shape[0], tgt.shape[1], sm.shape[1]
+    tt = [torch.from_numpy(a) for a in (tgt, sx, sy, sm)]
+    lim = ttrav.last_nonzero_columns(tt[3])
+    assert lim.tolist() == [300, 0, 77, 160]
+    plan = ttrav.mono_sweep_plan(g, s, c, 32, 4)
+    assert (plan.lanes, plan.slices, plan.tpg) == (16, 2, 1)
+    cx, cy = pair_accel(tt[1][:, None, :] - tt[0][:, :, 0:1],
+                        tt[2][:, None, :] - tt[0][:, :, 1:2],
+                        tt[3][:, None, :], 1e-3)
+    # Each run's f32 sum in column order; the columns past the bound and
+    # the padding add +0, which leaves an f32 sum bitwise as it is.
+    runs_c = -(-c // RUN)
+    keep = torch.arange(runs_c * RUN)[None, :] < lim[:, None]
+    run_sums = []
+    for terms in (cx, cy):
+        padded = torch.zeros((g, s, runs_c * RUN), dtype=torch.float32)
+        padded[..., :c] = terms
+        padded = torch.where(keep[:, None, :], padded, 0.0).reshape(
+            g, s, runs_c, RUN)
+        acc = torch.zeros((g, s, runs_c), dtype=torch.float32)
+        for j in range(RUN):
+            acc = acc + padded[..., j]
+        run_sums.append(acc)
+    part = torch.zeros((plan.slices, g, s, 2), dtype=torch.float64)
+    for gi, _, w, targets, runs in _mono_threads(plan, g, s, lim.tolist()):
+        for r in runs:  # f64, in the slice's run order
+            for k in range(2):
+                part[w, gi, targets, k] += run_sums[k][gi, targets, r].double()
+    got = torch.zeros((g, s, 2), dtype=torch.float64)
+    for w in range(plan.slices):
+        got += part[w]
+    got = got.float()
+    want_jax = np.asarray(jtrav._grouped_force(
+        *(jnp.asarray(a) for a in (tgt, sx, sy, sm)), softening2=1e-3,
+        rcp="exact", interpret=True))
+    want_ref = ttrav.grouped_force_ref(*tt, rcp="exact", col_limit=lim)
+    scale = torch.stack([cx.abs().double().sum(-1),
+                         cy.abs().double().sum(-1)], -1).numpy()
+    for want in (want_jax, want_ref.numpy()):
+        err = np.abs(got.numpy().astype(np.float64) - want)
+        assert np.all(err <= SUM_RTOL * scale), (err / scale).max()
+    assert torch.equal(got[1], torch.zeros(s, 2))  # bound 0: no run, +0
+    assert not bool(torch.signbit(got[1]).any())
 
 
 # -- K4 -----------------------------------------------------------------------
@@ -344,6 +508,18 @@ def test_wrappers_and_plans_refuse_what_they_cannot_run():
     t, s = torch.zeros(2, 4, 2), torch.zeros(2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         ttrav.grouped_sweep(t, s, s, s, src_q=(s, s, s))
+    for bad in (t, t.to("meta")):  # K3 as well: no device but CUDA
+        with pytest.raises(ValueError, match="CUDA"):
+            ttrav.grouped_sweep(bad, s, s, s, col_limit=torch.zeros(
+                2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="bad shape"):
+        ttrav.mono_sweep_plan(0, 64, 100, 256, 4)
+    with pytest.raises(ValueError, match="bad shape"):
+        ttrav.mono_sweep_plan(4, 0, 100, 256, 4)
+    with pytest.raises(ValueError, match="bad shape"):
+        ttrav.mono_sweep_plan(4, 64, -1, 256, 4)
+    with pytest.raises(ValueError, match="bad shape"):
+        ttrav.mono_sweep_plan(4, 64, 100, 192, 4)  # not a power of two
     p, m = torch.zeros(6, 2), torch.zeros(6)
     with pytest.raises(ValueError, match="CUDA"):
         ten.potential_cuda(p, p, m)
