@@ -65,7 +65,16 @@ with energy telemetry (``--force-path pallas --energy-every 8``) for 32
 steps, plus 8 steps of the galaxy World at θ=0.5 and 4 of the ordered
 all-pairs World (``sym_allpairs=False``), and ``make_sharded_step`` on
 the P=3 galaxy and the P=8 disc; each run zeroes the kernels' launch counts
-just before and reads them just after. Four steps of each
+just before and reads them just after. Last, the application on the
+galaxy: a run checkpointed at step 40 and resumed for 40 more, bitwise an
+unbroken 80-step run (live rows and checkpoints; the padding rows keep
+their sentinels), with 40 + 40 sweep launches against 80; a run with
+``--record`` and ``--gif``, its recording played back within 2 ulps of the
+largest coordinate per delta frame of a fresh World's positions and
+rendered by ``render_recording --device cuda``; the engine's ups with and
+without the particle readback; and the live viewer driven over HTTP
+(frames, stats, stream, pause, step, a θ retune, quit), with the host
+stages' times. Four steps of each
 Barnes-Hut world are traced with torch.profiler (device time and
 operations per step, the sweep kernel's share; a trace without device
 time for the step or the sweep kernel fails; a value+grad trace without
@@ -88,10 +97,13 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -116,6 +128,8 @@ PALLAS_STEPS = 32    # all-pairs main path
 ENERGY_EVERY = 8
 ORDERED_STEPS = 4    # the ordered all-pairs World
 N_BIG = 1_048_576
+APP_STEPS = 40       # the application phase: a run, and the resume after it
+VIEWER_STREAM_S = 2.0
 N_SAMPLED = 4096
 SMALL_N = (200, 512, 768, 1000, 1280)   # K2 tiles of 256: nt 1, 2, 3, 4, 5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -189,6 +203,35 @@ def card_query(fields: str) -> str:
 
 def card_line() -> str:
     return card_query("name,power.limit")
+
+
+def png_rgba(data: bytes):
+    """Decode a PNG file's bytes to an (H, W, 4) uint8 array: with PIL where
+    it is installed, else the one form ``utils/pngio`` writes without it
+    (8-bit RGBA, one zlib stream, every row unfiltered)."""
+    import numpy as np
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError("not a PNG file")
+    at, idat, head = 8, b"", None
+    while at < len(data):
+        n, tag = struct.unpack(">I4s", data[at:at + 8])
+        body = data[at + 8:at + 8 + n]
+        at += 12 + n
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat += body
+    w, h, depth, color = head
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    if depth != 8 or color != 6 or rows[:, 0].any():
+        raise RuntimeError("PNG form not decodable without PIL")
+    return rows[:, 1:].reshape(h, w, 4)
 
 
 def _cuobjdump() -> str:
@@ -1010,16 +1053,10 @@ def main() -> int:
     # -- 7. the Barnes-Hut main path ------------------------------------------
     from nbody_simulation_tpu_torch import run
 
-    def lit_pixels(png: Path, world) -> int:
+    def lit_pixels(png: Path) -> int:
         if not png.exists() or not png.stat().st_size:
             return 0
-        try:
-            from PIL import Image
-            return int((np.asarray(Image.open(png))[..., 3] > 0).sum())
-        except ImportError:
-            from nbody_simulation_tpu_torch.ops.raster import render_frame
-            w = world.state
-            return int((render_frame(w.pos, w.vel, w.mass)[..., 3] > 0).sum())
+        return int((png_rgba(png.read_bytes())[..., 3] > 0).sum())
 
     def check_world(label, world, steps, tmp, mass0):
         pos = world.state.pos[:world.state.n_real]
@@ -1030,7 +1067,7 @@ def main() -> int:
             raise RuntimeError(f"{label}: total mass changed: {mass0} -> "
                                f"{mass1}")
         png = Path(tmp) / f"frame_{steps:08d}.png"
-        lit = lit_pixels(png, world)
+        lit = lit_pixels(png)
         if lit == 0:
             raise RuntimeError(f"{label}: final frame missing or dark ({png})")
         log(f"{label} checks: positions finite, mass {mass1:.1f} unchanged, "
@@ -1920,6 +1957,296 @@ def main() -> int:
     sym_plan("K2 at the P=8 shard", l8, main_ap, True)
     del st8, disc8, p8i, m8i, p8j, m8j
     log(f"phase multi-device: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 11. the application: checkpoint and resume, recording, GIF, viewer --
+    # Host layers over the Barnes-Hut galaxy (K3 on every step). Their times
+    # are the host's; none of them is a kernel's.
+    t_phase = time.perf_counter()
+    from nbody_simulation_tpu_torch import render_recording
+    from nbody_simulation_tpu_torch.ops.raster import render_frame
+    from nbody_simulation_tpu_torch.runtime.engine import Engine
+    from nbody_simulation_tpu_torch.state import PAD_POS
+    from nbody_simulation_tpu_torch.utils import recording as rec_mod
+    from nbody_simulation_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                             save_checkpoint)
+    from nbody_simulation_tpu_torch.utils.pngio import encode_png
+    from nbody_simulation_tpu_torch.viz import ViewerServer
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    log(f"application: recordings in {rec_mod.CODEC}; PNGs through "
+        + ("PIL, GIFs written" if has_pil else
+           "utils/pngio's zlib encoder (no PIL here), GIFs skipped"))
+
+    def cli(args):
+        """``run.simulate(args)`` on the card, its output captured: (world,
+        output, sweep launches)."""
+        buf = io.StringIO()
+        traversal.grouped_sweep.launches = 0
+        with contextlib.redirect_stdout(buf):
+            w = run.simulate([*args, "--device", "cuda"])
+        torch.cuda.synchronize()
+        return w, buf.getvalue(), traversal.grouped_sweep.launches
+
+    def same_bits(a, b) -> bool:
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    every = cfg.resort_every
+    if APP_STEPS % every == 0:
+        raise RuntimeError("the resume must fall between re-sorts")
+    with tempfile.TemporaryDirectory() as tmpd:
+        tmp = Path(tmpd)
+        # Checkpoint at step 40, resume for 40 more, against 80 unbroken.
+        whole, _, l_whole = cli(["--steps", str(2 * APP_STEPS), "--out",
+                                 str(tmp / "a"), "--checkpoint",
+                                 str(tmp / "ck80.npz")])
+        first, _, l_first = cli(["--steps", str(APP_STEPS), "--out",
+                                 str(tmp / "b"), "--checkpoint",
+                                 str(tmp / "ck40.npz")])
+        resumed, out, l_res = cli(["--resume", str(tmp / "ck40.npz"),
+                                   "--steps", str(APP_STEPS), "--out",
+                                   str(tmp / "c"), "--checkpoint",
+                                   str(tmp / "ck80r.npz")])
+        if (whole.updates, first.updates, resumed.updates) != (
+                2 * APP_STEPS, APP_STEPS, 2 * APP_STEPS):
+            raise RuntimeError(f"resume: updates {whole.updates}, "
+                               f"{first.updates}, {resumed.updates}")
+        if (l_first, l_res, l_whole) != (APP_STEPS, APP_STEPS, 2 * APP_STEPS):
+            raise RuntimeError(f"resume: sweep launches {l_first} + {l_res} "
+                               f"against {l_whole}")
+        live_w, live_r = whole.state.real_slice(), resumed.state.real_slice()
+        for k in ("pos", "vel", "mass"):
+            if not same_bits(getattr(live_w, k), getattr(live_r, k)):
+                raise RuntimeError(f"resume at step {APP_STEPS}: live {k} not "
+                                   f"bitwise the unbroken run's")
+        with np.load(tmp / "ck80.npz") as za, np.load(tmp / "ck80r.npz") as zb:
+            for k in ("step", "n_real", "pos", "vel", "mass"):
+                if za[k].tobytes() != zb[k].tobytes():
+                    raise RuntimeError(f"resume: checkpoint field {k} differs")
+        pad_speed = 0.0
+        for w in (whole, resumed):
+            n_real = w.state.n_real
+            n_pad = w.state.n - n_real
+            want = (torch.full((n_pad, 2), PAD_POS, device=dev)
+                    + torch.arange(n_pad, dtype=torch.float32,
+                                   device=dev)[:, None])
+            if not torch.equal(w.state.pos[n_real:], want) \
+                    or w.state.mass[n_real:].any():
+                raise RuntimeError("padding rows moved or gained mass")
+            pad_speed = max(pad_speed,
+                            w.state.vel[n_real:].abs().max().item())
+        log(f"resume: {APP_STEPS} steps, checkpoint, {APP_STEPS} resumed "
+            f"steps bitwise {2 * APP_STEPS} unbroken ones (live pos, vel, "
+            f"mass; the checkpoints byte for byte); updates "
+            f"{resumed.updates}; sweep launches {l_first} + {l_res} against "
+            f"{l_whole}; {n_pad} padding rows at their sentinels, mass 0, "
+            f"speed at most {pad_speed:.3e} (the live particles' pull; no "
+            f"position moves by it)")
+        save_ms, load_ms = [], []
+        for k in range(3):
+            t0 = time.perf_counter()
+            save_checkpoint(tmp / f"t{k}.npz", live_r, resumed.updates)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            st, step = load_checkpoint(tmp / f"t{k}.npz")
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+        if step != 2 * APP_STEPS or not same_bits(st.pos, live_r.pos.cpu()):
+            raise RuntimeError("checkpoint round trip differs")
+        log(f"checkpoint of the galaxy ({live_r.n} bodies): save "
+            + ", ".join(f"{t:.2f}" for t in save_ms) + " ms (device copy "
+            f"included), load " + ", ".join(f"{t:.2f}" for t in load_ms)
+            + f" ms, {(tmp / 't0.npz').stat().st_size} bytes")
+
+        # Recording, GIF and the offline renderer.
+        rworld, out, l_rec = cli(["--steps", str(APP_STEPS), "--out",
+                                  str(tmp / "d"), "--record",
+                                  str(tmp / "r.bin"), "--gif",
+                                  str(tmp / "a.gif"), "--checkpoint",
+                                  str(tmp / "ckr.npz")])
+        if l_rec != APP_STEPS:
+            raise RuntimeError(f"record run: {l_rec} sweep launches")
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith(("recording:", "gif:"))]
+        for line in lines:
+            log(f"  run: {line}")
+        if has_pil:
+            if not (tmp / "a.gif").read_bytes().startswith(b"GIF89a"):
+                raise RuntimeError("--gif wrote no GIF")
+        elif "gif: PIL unavailable, skipped" not in out \
+                or (tmp / "a.gif").exists():
+            raise RuntimeError("--gif without PIL: no skip message")
+        frames = list(rec_mod.playback(tmp / "r.bin"))
+        n_real = rworld.state.n_real
+        ref = World(galaxy(seed=0).to(dev), SimConfig(force_path="bh"))
+        truth, masses = {}, {}
+        for step in sorted({s for s, _ in frames}):
+            ref.run(step - ref.updates)
+            truth[step] = ref.state.pos[:n_real].cpu().numpy()
+            masses[step] = ref.state.mass[:n_real].clone()
+        if not same_bits(torch.from_numpy(truth[APP_STEPS]),
+                         rworld.state.pos[:n_real].cpu()):
+            raise RuntimeError("a fresh World does not retrace the run")
+        big = max(float(np.abs(t).max()) for t in truth.values())
+        ulp = float(np.spacing(np.float32(big)))
+        errs = []
+        for k, (step, pos) in enumerate(frames):
+            err = float(np.abs(pos - truth[step]).max())
+            errs.append(err / ulp)
+            # Frame k adds k deltas, each rounded twice (the delta and the
+            # sum) by at most 1 and 1/2 ulp of the largest coordinate.
+            if err > 2 * k * ulp:
+                raise RuntimeError(f"playback frame {k} (step {step}): "
+                                   f"{err:.3e} from the run, bound "
+                                   f"{2 * k} ulp of {big:.4e}")
+        log(f"playback: {len(frames)} frames at steps "
+            f"{[s for s, _ in frames]}; max |playback - run| per frame in "
+            f"ulps of the largest coordinate {big:.4e} (ulp {ulp:.3e}): "
+            + ", ".join(f"{e:.2f}" for e in errs) + " (bound 2 per delta "
+            "frame)")
+        rec = rec_mod.Recorder(tmp / "t.bin")
+        rec_ms = []
+        for step in sorted(truth):
+            t0 = time.perf_counter()
+            rec.record(truth[step], step)
+            rec_ms.append((time.perf_counter() - t0) * 1e3)
+        rec.close()
+        log(f"recorder ({rec_mod.CODEC}): " + ", ".join(
+            f"{t:.2f}" for t in rec_ms) + f" ms per frame; raw "
+            f"{rec.raw_bytes // rec.frames} bytes per frame, compressed "
+            f"{rec.comp_bytes / rec.frames:.0f} (first frame absolute)")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            render_recording.main([str(tmp / "r.bin"), "--out",
+                                   str(tmp / "rr"), "--state",
+                                   str(tmp / "ckr.npz"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        rr_s = time.perf_counter() - t0
+        last = tmp / "rr" / f"frame_{APP_STEPS:08d}.png"
+        lit = lit_pixels(last)
+        if lit == 0:
+            raise RuntimeError(f"render_recording: last frame dark ({last})")
+        # --state maps the checkpoint's masses by row, and rows follow the
+        # re-sorts: only frames after the last re-sort get the right ones.
+        wrong = []
+        for step, pos in frames:
+            tpos = torch.from_numpy(pos).to(dev)
+            want = render_frame(tpos, torch.zeros_like(tpos), masses[step])
+            got = png_rgba((tmp / "rr" / f"frame_{step:08d}.png")
+                           .read_bytes())
+            wrong.append(int((got != want.cpu().numpy()).any(-1).sum()))
+        log(f"render_recording --device cuda: {len(frames)} frames in "
+            f"{rr_s:.2f} s, the last with {lit} lit pixels; pixels that "
+            f"differ from a render with the masses of the recording's rows: "
+            f"{wrong} (the --state row mapping is exact only after the last "
+            f"re-sort, step {APP_STEPS // every * every})")
+        if wrong[-1] != 0:
+            raise RuntimeError("render_recording --state: the last frame, "
+                               "after the last re-sort, is mis-tinted")
+
+        # ups with the particle readback of --record and without it.
+        uworld = World(galaxy(seed=0).to(dev), SimConfig(force_path="bh"))
+        uworld.run(every + 1)
+        rates = []
+        for turn, include in enumerate((False, True, True, False)):
+            eng = Engine(uworld, include_particles=include,
+                         steps_per_snapshot=10, snapshot_interval=0.0)
+            urec = (rec_mod.Recorder(tmp / f"u{turn}.bin") if include
+                    else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.start(max_steps=uworld.updates + 2 * APP_STEPS)
+            while (snap := eng.next_snapshot(timeout=None)) is not None:
+                if urec is not None:
+                    urec.maybe_record(snap.pos, snap.step)
+            eng.join(timeout=120)
+            eng.stop()
+            rates.append(2 * APP_STEPS / (time.perf_counter() - t0))
+            if urec is not None:
+                urec.close()
+        log(f"galaxy ups through the engine, {2 * APP_STEPS} steps each, in "
+            f"turns without/with/with/without --record's particle readback "
+            f"and recorder: " + ", ".join(f"{r:.1f}" for r in rates))
+
+    # The viewer over a galaxy engine, driven over HTTP.
+    vworld = World(galaxy(seed=0).to(dev), SimConfig(force_path="bh"))
+    veng = Engine(vworld, steps_per_snapshot=10, snapshot_interval=0.0)
+    viewer = ViewerServer(veng, port=0)
+    base = f"http://127.0.0.1:{viewer.port}"
+
+    def get(path: str) -> bytes:
+        with urllib.request.urlopen(base + path, timeout=30) as r:
+            return r.read()
+
+    def stats() -> dict:
+        return json.loads(get("/stats"))
+
+    def until(cond, what: str, timeout: float = 30.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"viewer: {what} not reached in "
+                                   f"{timeout} s")
+            time.sleep(0.02)
+
+    viewer.start()
+    veng.start(max_steps=None)
+    try:
+        until(lambda: stats()["step"] > 0, "a first frame")
+        s1 = stats()["step"]
+        until(lambda: stats()["step"] > s1, "/stats advancing")
+        parts, tail = 0, b""
+        with urllib.request.urlopen(base + "/stream", timeout=30) as r:
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < VIEWER_STREAM_S:
+                chunk = tail + r.read1(1 << 16)
+                parts += chunk.count(b"--frame\r\n")
+                tail = chunk[-8:]
+            stream_s = time.monotonic() - t0
+        get("/control?cmd=pause")
+        until(lambda: stats()["paused"], "pause")
+        time.sleep(0.5)  # a batch under way when the flag was set ends
+        u0 = vworld.updates
+        time.sleep(0.5)
+        if vworld.updates != u0:
+            raise RuntimeError("viewer: pause did not freeze updates")
+        until(lambda: viewer.latest is not None and viewer.latest.step == u0,
+              "a frame of the paused state")
+        png = get("/frame.png")
+        if not np.array_equal(png_rgba(png), viewer.latest.frame):
+            raise RuntimeError("viewer: /frame.png is not the snapshot's "
+                               "frame")
+        get("/control?cmd=step")
+        until(lambda: vworld.updates >= u0 + veng.steps_per_snapshot,
+              "a step")
+        time.sleep(0.5)
+        if vworld.updates != u0 + veng.steps_per_snapshot or not veng.paused:
+            raise RuntimeError(f"viewer: step went {u0} -> {vworld.updates}")
+        get("/control?theta=40")
+        until(lambda: vworld.config.theta == 40.0, "the theta retune")
+        get("/control?cmd=quit")
+        veng.join(timeout=60)
+        if veng._thread.is_alive():
+            raise RuntimeError("viewer: quit left the producer running")
+    finally:
+        veng._stop.set()
+        veng.stop()
+        viewer.stop()
+    enc_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        encode_png(viewer.latest.frame)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"viewer: /stats advanced, {parts} frames pushed on /stream in "
+        f"{stream_s:.2f} s ({parts / stream_s:.2f} per s); pause held "
+        f"updates at {u0}, step went to {u0 + veng.steps_per_snapshot}, "
+        f"theta 40 reached world.config, quit ended the producer; PNG "
+        f"encode of a {viewer.latest.frame.shape[0]}^2 frame "
+        + ", ".join(f"{t:.2f}" for t in enc_ms) + f" ms, {len(png)} bytes "
+        + ("(PIL)" if has_pil else "(utils/pngio)"))
+    log(f"phase application: {time.perf_counter() - t_phase:.1f} s")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bd):
         return {"name": name, "route": "cuda",

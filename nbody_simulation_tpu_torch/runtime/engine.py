@@ -124,6 +124,11 @@ class Engine:
         self._step_once = threading.Event()
         self._pending_cfg: dict = {}
         self._cfg_lock = threading.Lock()
+        # Optional control hook (runtime/control.ControlBus.poll): called
+        # once per loop iteration on the producer thread, before the
+        # pending reconfigure. On a run of several processes it is a
+        # collective, the one place controls are applied in lockstep.
+        self.control_poll = None
 
     # -- interactive control ----------------------------------------------------
     def pause(self) -> None:
@@ -204,6 +209,13 @@ class Engine:
             while not self._stop.is_set():
                 if max_steps is not None and self.world.updates >= max_steps:
                     break
+                if self.control_poll is not None:
+                    # Every process calls it at the same iteration index;
+                    # every change of state that could diverge comes out
+                    # of this call, which keeps them in lockstep.
+                    self.control_poll(self)
+                    if self._stop.is_set():
+                        break
                 with self._cfg_lock:
                     pending, self._pending_cfg = self._pending_cfg, {}
                 if pending:

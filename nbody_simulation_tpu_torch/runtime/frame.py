@@ -1,5 +1,6 @@
-"""Native host-side sparse→dense frame reconstruction, with a NumPy
-fallback when no C++ toolchain exists."""
+"""Native host-side frame stages: sparse→dense reconstruction and the
+alpha-composite over black for the GIF and viewer, with NumPy fallbacks
+when no C++ toolchain exists."""
 
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ def _frame_lib():
                 lib.frame_reconstruct.argtypes = [
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
                     ctypes.c_void_p, ctypes.c_size_t]
+                lib.frame_composite_black.restype = None
+                lib.frame_composite_black.argtypes = [
+                    ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
                 _lib = lib
     return _lib
 
@@ -50,3 +54,18 @@ def reconstruct(idx: np.ndarray, vals: np.ndarray,
         out[idx[ok]] = vals[ok]
     return out.view(np.uint8).reshape(render_size, render_size, 4)
 
+
+def composite_black(frame: np.ndarray) -> np.ndarray:
+    """RGBA u8 over black → RGB u8 (the GIF and viewer path):
+    rgb = rgb_in · a // 255."""
+    frame = np.ascontiguousarray(frame, np.uint8)
+    if frame.ndim != 3 or frame.shape[2] != 4:
+        raise ValueError(f"frame must be (H, W, 4), got {frame.shape}")
+    h, w = frame.shape[:2]
+    lib = _frame_lib()
+    if lib is not None:
+        rgb = np.empty((h, w, 3), np.uint8)
+        lib.frame_composite_black(frame.ctypes.data, h * w, rgb.ctypes.data)
+        return rgb
+    a = frame[..., 3:4].astype(np.uint16)
+    return (frame[..., :3].astype(np.uint16) * a // 255).astype(np.uint8)

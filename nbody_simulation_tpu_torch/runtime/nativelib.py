@@ -1,10 +1,10 @@
 """On-demand builder for the native (C++) host-side runtime pieces.
 
-The sources are the JAX package's ``nbody_simulation_tpu/runtime/native/
-<name>.cpp``, read by file path (nothing of that package is imported). They
-compile with g++ into this package's ``_build/`` directory, keyed by a hash
-of the source. Without a toolchain ``load_native`` returns None and the
-callers use their NumPy / pure-Python fallbacks; both are host code.
+The sources are this package's ``runtime/native/<name>.cpp`` (copies of
+the JAX package's, which the port does not read). They compile with g++
+into this package's ``_build/`` directory, keyed by a hash of the source.
+Without a toolchain ``load_native`` returns None and the callers use their
+NumPy / pure-Python fallbacks; both are host code.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import threading
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
-NATIVE_DIR = _PKG_DIR.parent / "nbody_simulation_tpu" / "runtime" / "native"
+NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = _PKG_DIR / "_build"
 _lock = threading.Lock()
 _cache: dict[str, ctypes.CDLL | None] = {}

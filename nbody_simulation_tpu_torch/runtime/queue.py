@@ -3,9 +3,8 @@ pure-Python fallback of identical semantics.
 
 The reference's sim→render channel is ``flume::bounded(2)`` (reference
 src/main.rs:101-146): the producer drops a snapshot when the queue is full
-(``try_send``), the consumer blocks on pop. The native source is the JAX
-package's ``runtime/native/snapshot_queue.cpp`` (built by
-``runtime/nativelib.py``).
+(``try_send``), the consumer blocks on pop. The native source is
+``runtime/native/snapshot_queue.cpp`` (built by ``runtime/nativelib.py``).
 """
 
 from __future__ import annotations

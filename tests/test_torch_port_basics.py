@@ -132,6 +132,11 @@ def test_import_port_leaves_jax_unloaded():
         "import nbody_simulation_tpu_torch.models, "
         "nbody_simulation_tpu_torch.ops, nbody_simulation_tpu_torch.runtime, "
         "nbody_simulation_tpu_torch.parallel\n"
+        "import nbody_simulation_tpu_torch.utils.checkpoint, "
+        "nbody_simulation_tpu_torch.utils.recording, "
+        "nbody_simulation_tpu_torch.render_recording, "
+        "nbody_simulation_tpu_torch.runtime.control, "
+        "nbody_simulation_tpu_torch.viz\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nbody_simulation_tpu')]\n"
         "print(bad)\n"
@@ -140,3 +145,15 @@ def test_import_port_leaves_jax_unloaded():
                           text=True, timeout=120,
                           cwd=PORT_DIR.parent)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_sources_are_the_ports_own():
+    """The host libraries build from sources inside the port, not from the
+    JAX package's directory."""
+    from nbody_simulation_tpu_torch.runtime import nativelib
+    native = Path(nativelib.NATIVE_DIR).resolve()
+    assert native.is_relative_to(PORT_DIR.resolve())
+    for name in ("frame", "snapshot_queue"):
+        assert (native / f"{name}.cpp").is_file()
+    for path in sorted(PORT_DIR.rglob("*.py")):  # no path into it either
+        assert '"nbody_simulation_tpu"' not in path.read_text(), path

@@ -257,12 +257,3 @@ def test_cli_pallas_path_prints_energy(tmp_path, capsys, method):
     assert "|dE/E0|=0.000e+00" in lines[0]
     assert "done: 10 steps" in out
     assert (tmp_path / "frame_00000010.png").exists()
-
-
-@pytest.mark.parametrize("flags", [
-    ["--resume", "x.npz"], ["--checkpoint", "x.npz"], ["--record", "r.bin"],
-    ["--gif", "a.gif"], ["--serve", "8000"],
-])
-def test_cli_flags_not_yet_ported_raise(flags):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run.main(["--device", "cpu", *flags])
