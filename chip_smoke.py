@@ -55,7 +55,18 @@ version at the main paths' shapes:
   ``bh_sharded_accel`` there against ``bh_accel``;
   ``ring_allpairs_accel_diff`` at P=3 against f64 autograd; the
   1,048,576-body disc at P=8 (K=4 rounds with the half round), its ring
-  held on sampled rows and two steps timed.
+  held on sampled rows and two steps timed;
+- the fully distributed Barnes-Hut on a ``LocalMesh(8)`` of 1,048,576
+  bodies a shard (``distributed_phase``): 16 ``DistributedWorld`` steps at
+  θ=50 with two collective rebalances (K3 launches per stage, one traced
+  step, peak memory), mass conserved, the forest against the ring, the
+  compute-to-data near stages and the collective rebalance bitwise their
+  same-device and host forms, a ``DistributedEngine`` frame, both
+  energies (the exact one against a single device), and the distributed
+  force against single-device ``bh_accel``; the θ=0.5 Plummer with seam
+  matchings against the ring, the ring with full caps against a single
+  device, the gradient at P=4 against ``bh_accel_diff``; and K3, K8 and K4
+  at the near (S=512) and forest (S=2048) rows.
 
 Then it drives the main paths through the CLI: the Barnes-Hut galaxy
 (``python -m nbody_simulation_tpu_torch.run`` defaults) for 64 steps, the
@@ -102,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import urllib.request
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -324,6 +336,490 @@ def sass_per_pair(lib: Path, function: str) -> tuple[float, float]:
     return best[0] / best[2], best[1] / best[2]
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device time in µs."""
+    return (getattr(e, "self_device_time_total", 0)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+N_DIST = 8_388_608   # the distributed path: P=8 shards of 1,048,576
+DIST_P = 8
+DIST_STEPS = 16
+DIST_REBALANCE = 8
+N_DIST_QUALITY = 262_144
+N_DIST_EXACT = 65_536
+N_DIST_GRAD = 131_072  # the galaxy's first 2^17 rows: P=4 shards, no padding
+FOREST_ROWS = 32       # leaves per forest row (bh_distributed.FOREST_ROW_LEAVES)
+
+
+def distributed_phase(h):
+    """The fully distributed Barnes-Hut path on a ``LocalMesh`` of P shards
+    on the card (ROADMAP item 6.1-6.5): the θ=50 main path at N=8,388,608
+    under ``DistributedWorld`` with its rebalances, the θ=0.5 quality path
+    with seam matchings, exact parity of the ring, the gradient, the
+    energy, and K3, K4 and K8 at the path's row shapes. ``h`` holds
+    ``main``'s helpers. Returns (the launches of its runs per kernel, the
+    kernels' checks at the new shapes)."""
+    import numpy as np
+    import torch
+
+    from nbody_simulation_tpu_torch import parallel as par
+    from nbody_simulation_tpu_torch.config import SimConfig
+    from nbody_simulation_tpu_torch.models.scenarios import (galaxy, plummer,
+                                                             uniform_disc)
+    from nbody_simulation_tpu_torch.ops import energy as en
+    from nbody_simulation_tpu_torch.ops import traversal
+    from nbody_simulation_tpu_torch.ops import traversal_grad as tgr
+    from nbody_simulation_tpu_torch.ops.raster import render_frame
+    from nbody_simulation_tpu_torch.parallel import bh_distributed as bd
+    from nbody_simulation_tpu_torch.runtime.distributed import (
+        DistributedEngine, DistributedWorld)
+    from nbody_simulation_tpu_torch.state import ParticleState
+    from nbody_simulation_tpu_torch.utils.telemetry import EnergyMeter
+
+    log, dev = h.log, h.dev
+    t_phase = time.perf_counter()
+    gs = traversal.grouped_sweep
+    counted = {"K3": (gs, "launches"), "K4": (gs, "quad_launches"),
+               "K6": (en.potential_cuda, "launches"),
+               "K8a": (tgr.grouped_bwd_tgt_cuda, "launches"),
+               "K8b": (tgr.grouped_bwd_src_cuda, "launches")}
+
+    def zero_counts():
+        for fn, attr in counted.values():
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k: getattr(fn, attr) for k, (fn, attr) in counted.items()
+                if getattr(fn, attr)}
+
+    # Every stage's sweep goes through bh_distributed._sweep: tally its
+    # launches and device time per stage, and keep each monopole stage's
+    # first inputs (K3 and K8 are held at these shapes below).
+    real_sweep = bd._sweep
+    stages, first = {}, {}
+
+    def staged_sweep(stage, tgt, cols, cfg, mp, rcp, force=None):
+        k3, k4 = gs.launches, gs.quad_launches
+        k8 = tgr.grouped_bwd_tgt_cuda.launches
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real_sweep(stage, tgt, cols, cfg, mp, rcp, force)
+        e1.record()
+        rec = stages.setdefault(stage, {"K3": 0, "K4": 0, "events": []})
+        rec["K3"] += gs.launches - k3
+        rec["K4"] += gs.quad_launches - k4
+        rec["events"].append((e0, e1))
+        if mp == 1 and force is None and stage not in first:
+            first[stage] = (tgt, cols, rcp)
+        return out
+
+    def stage_report():
+        torch.cuda.synchronize()
+        out = {s: {"K3": r["K3"], "K4": r["K4"],
+                   "ms": sum(a.elapsed_time(b) for a, b in r["events"])}
+               for s, r in stages.items()}
+        stages.clear()
+        return out
+
+    def rel_err(got, want, live):
+        r = ((got - want).double().norm(dim=1)
+             / want.double().norm(dim=1).clamp_min(1e-12))[live]
+        return r.median().item(), torch.quantile(r.float(), 0.99).item()
+
+    bd._sweep = staged_sweep
+    try:
+        # -- the main path: θ=50, P=8, N=8,388,608, forest, compute to data
+        mesh = par.LocalMesh(DIST_P, dev)
+        cfg = SimConfig(force_path="bh", theta=50.0)
+        t0 = time.perf_counter()
+        ds = par.distribute_state(uniform_disc(N_DIST, seed=0), mesh, cfg)
+        torch.cuda.synchronize()
+        L = ds.n // DIST_P
+        log(f"distributed BH: uniform_disc N={N_DIST} laid out on P={DIST_P} "
+            f"shards of L={L} in {time.perf_counter() - t0:.2f} s "
+            "(host Morton sort)")
+        mass0 = par.sharded_diagnostics(ds, mesh)["total_mass"]
+        world = DistributedWorld(ds, mesh, cfg,
+                                 rebalance_every=DIST_REBALANCE)
+        world.step()                         # warm-up: first-call costs
+        torch.cuda.synchronize()
+        world = DistributedWorld(ds, mesh, cfg,
+                                 rebalance_every=DIST_REBALANCE)
+        torch.cuda.reset_peak_memory_stats()
+        stages.clear()
+        zero_counts()
+        t0 = time.perf_counter()
+        world.run(DIST_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        main_counts = read_counts()
+        main_stages = stage_report()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"distributed BH theta=50 P={DIST_P} N={N_DIST}: {DIST_STEPS} "
+            f"DistributedWorld steps (rebalance every {DIST_REBALANCE}, "
+            f"re-sort every {cfg.resort_every}) in {run_s:.3f} s, "
+            f"{DIST_STEPS / run_s:.3f} steps/s untraced; launches "
+            f"{main_counts}; per stage {main_stages}; peak memory "
+            f"{peak / 2**30:.3f} GiB")
+        if set(main_counts) != {"K3"} or not main_counts["K3"]:
+            raise RuntimeError(f"distributed BH launches {main_counts}")
+        diag = par.sharded_diagnostics(world.state, mesh)
+        m_err = abs(diag["total_mass"].item() - mass0.item()) / mass0.item()
+        if not (m_err <= 1e-6 and bool(torch.isfinite(world.state.pos).all())
+                and diag["n_live"].item() == N_DIST):
+            raise RuntimeError(f"distributed BH: mass {diag['total_mass']}"
+                               f" against {mass0}, n_live {diag['n_live']}")
+        log(f"distributed BH: total mass conserved ({m_err:.2e} relative, "
+            f"bound 1e-6), n_live {diag['n_live'].item()}, positions finite")
+
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            world.step()
+            torch.cuda.synchronize()
+        traced = stage_report()
+        events = prof.key_averages()
+        dev_ms = sum(h.dev_us(e) for e in events) / 1e3
+        k3_ms = sum(h.dev_us(e) for e in events
+                    if "grouped_sweep_kernel" in e.key) / 1e3
+        n_ops = sum(1 for e in prof.events()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if dev_ms <= 0 or k3_ms <= 0:
+            raise RuntimeError("distributed BH trace recorded no device time")
+        log(f"distributed BH traced step: device time {dev_ms:.3f} ms in "
+            f"{n_ops} device operations, K3 {k3_ms:.3f} ms "
+            f"({k3_ms / dev_ms:.0%}); K3 launches per stage "
+            + ", ".join(f"{s} {r['K3']}" for s, r in traced.items()))
+
+        # Forest against the ring on the same state; the compute-to-data
+        # near stage against the same-device one, bitwise.
+        st = world.state
+        live = st.mass > 0
+        forest = par.bh_distributed_accel(st.pos, st.mass, mesh, config=cfg)
+        ring = par.bh_distributed_accel(
+            st.pos, st.mass, mesh, config=cfg.replace(far_mode="ring"))
+        med, p99 = rel_err(forest, ring, live)
+        log(f"distributed BH forest vs far_mode=ring: median relative "
+            f"{med:.4e} (bound 0.02), p99 {p99:.4e}")
+        if not med < 0.02:
+            raise RuntimeError(f"forest vs ring median {med}")
+        del ring
+        same = par.bh_distributed_accel(
+            st.pos, st.mass, mesh, config=cfg.replace(near_remote=False))
+        if not torch.equal(forest.view(torch.int32), same.view(torch.int32)):
+            raise RuntimeError("near_remote=True differs from near_remote="
+                               "False")
+        log("distributed BH: compute-to-data near stages (near_remote=True) "
+            "bitwise the same-device ones")
+        del same
+        stage_report()
+
+        # The collective rebalance against the host's after a drift.
+        step = par.make_distributed_bh_step(mesh, cfg)
+        drift = st
+        for _ in range(3):
+            drift = step(drift)
+        t0 = time.perf_counter()
+        host = par.rebalance_state(drift, mesh, cfg)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        coll = par.collective_rebalance(drift, mesh, cfg)
+        torch.cuda.synchronize()
+        coll_s = time.perf_counter() - t0
+        if not all(torch.equal(getattr(host, k), getattr(coll, k))
+                   for k in ("pos", "vel", "mass")):
+            raise RuntimeError("collective_rebalance differs from "
+                               "rebalance_state")
+        log(f"collective_rebalance bitwise rebalance_state after 3 steps of "
+            f"drift: {coll_s * 1e3:.1f} ms on the card, {host_s * 1e3:.1f} ms "
+            "through the host")
+        del drift, host, coll
+        stage_report()
+
+        # The engine: a few batches, the last frame against the sharded
+        # raster of the same state.
+        eng = DistributedEngine(world, snapshot_interval=0.0,
+                                steps_per_snapshot=2, profile_every=0)
+        start = world.updates
+        eng.start(max_steps=start + 4)
+        eng.join(timeout=300)
+        snap = None
+        while True:
+            nxt = eng.next_snapshot(timeout=1.0)
+            if nxt is None:
+                break
+            snap = nxt
+        eng.stop()
+        want = par.sharded_render_frame(
+            world.state.pos, world.state.vel, world.state.mass, mesh,
+            world_size=cfg.world_size, render_size=cfg.render_size,
+            heavy_weight=cfg.heavy_weight).cpu().numpy()
+        if (snap is None or snap.step != start + 4
+                or not np.array_equal(snap.frame, want)):
+            raise RuntimeError("DistributedEngine frame differs from "
+                               "sharded_render_frame")
+        log(f"DistributedEngine: steps {start} to {snap.step} in batches of "
+            f"2; the last frame pixel for pixel sharded_render_frame of the "
+            f"state ({int((want[..., 3] > 0).sum())} lit pixels)")
+        stage_report()
+
+        # Energy on the θ=50 world: Barnes-Hut staged and exact (K6 ring).
+        lines = []
+        meters = {}
+        for method in ("bh", "exact"):
+            zero_counts()
+            meter = EnergyMeter(1, emit=lines.append, method=method)
+            t0 = time.perf_counter()
+            meter(world)
+            torch.cuda.synchronize()
+            meters[method] = (meter.samples[-1][1],
+                              (time.perf_counter() - t0) * 1e3, read_counts())
+        stage_report()
+        flat = ParticleState(world.state.pos, world.state.vel,
+                             world.state.mass)
+        t0 = time.perf_counter()
+        e1 = en.total_energy(flat).item()
+        e1_ms = (time.perf_counter() - t0) * 1e3
+        e_exact = meters["exact"][0]
+        log(f"EnergyMeter on the theta=50 world: bh {meters['bh'][0]:.6e} "
+            f"({meters['bh'][1]:.1f} ms, launches {meters['bh'][2]}), exact "
+            f"{e_exact:.6e} ({meters['exact'][1]:.1f} ms, launches "
+            f"{meters['exact'][2]}); single-device total_energy {e1:.6e} "
+            f"({e1_ms:.1f} ms)")
+        if (abs(e_exact - e1) > 1e-5 * abs(e1)
+                or meters["exact"][2] != {"K6": DIST_P * DIST_P}):
+            raise RuntimeError(f"distributed exact energy {e_exact} against "
+                               f"{e1}, launches {meters['exact'][2]}")
+        energy_counts = meters["exact"][2]
+
+        # Last of the main path: the distributed force against the
+        # single-device bh_accel on the same state (run_multihost's
+        # self-check).
+        fcap, lcap = cfg.resolved_caps()
+        single = traversal.bh_accel(
+            flat.pos, flat.mass, theta=cfg.theta, softening2=cfg.softening2,
+            leaf_size=cfg.leaf_size, world_size=cfg.world_size,
+            unweighted_leaf_com=cfg.unweighted_leaf_com, frontier_cap=fcap,
+            leaf_cap=lcap, plan_leaves=cfg.plan_leaves,
+            morton_bits=cfg.resolved_morton_bits(), multipole=1,
+            rcp=cfg.resolved_rcp(bh=True))
+        forest = par.bh_distributed_accel(st.pos, st.mass, mesh, config=cfg)
+        self_med, self_p99 = rel_err(forest, single, st.mass > 0)
+        del single, forest, flat, world, st, ds, eng
+        stage_report()
+        torch.cuda.empty_cache()
+
+        # -- θ=0.5 quality, P=8: seam matchings, forest against the ring
+        qcfg = SimConfig(force_path="bh", theta=0.5, frontier_cap=128,
+                         leaf_cap=256, plan_leaves=1,
+                         unweighted_leaf_com=False)
+        qds = par.distribute_state(plummer(N_DIST_QUALITY, seed=0), mesh,
+                                   qcfg)
+        extra = par.adjacency_stages(qds, mesh, qcfg)
+        log(f"theta=0.5 Plummer N={N_DIST_QUALITY} P={DIST_P}: "
+            f"{len(extra)} seam matchings, "
+            f"{sum(len(m) for m in extra) // 2} shard pairs")
+        if not extra:
+            raise RuntimeError("no seam matchings at theta=0.5")
+        stage_report()
+        zero_counts()
+        qf = par.bh_distributed_accel(qds.pos, qds.mass, mesh, config=qcfg,
+                                      extra_pairs=extra)
+        q_counts = read_counts()
+        q_stages = stage_report()
+        qring = par.bh_distributed_accel(
+            qds.pos, qds.mass, mesh,
+            config=qcfg.replace(far_mode="ring", far_frontier_cap=128,
+                                far_leaf_cap=256))
+        qmed, qp99 = rel_err(qf, qring, qds.mass > 0)
+        log(f"theta=0.5 forest with seams vs the ring (full far caps): "
+            f"median {qmed:.4e}, p99 {qp99:.4e} (bounds 1e-3); launches "
+            f"{q_counts}; K4 per stage "
+            + ", ".join(f"{s} {r['K4']} launches {r['ms']:.3f} ms"
+                        for s, r in q_stages.items()))
+        if not (qmed < 1e-3 and qp99 < 1e-3) or not q_counts.get("K4"):
+            raise RuntimeError(f"theta=0.5 forest error {qmed}, {qp99}, "
+                               f"launches {q_counts}")
+        del qf, qring
+        qstep = par.make_distributed_bh_step(mesh, qcfg, extra_pairs=extra)
+        qm0 = par.sharded_diagnostics(qds, mesh)["total_mass"].item()
+        q2 = qstep(qstep(qds))
+        qm1 = par.sharded_diagnostics(q2, mesh)["total_mass"].item()
+        if abs(qm1 - qm0) > 1e-6 * qm0 or not bool(
+                torch.isfinite(q2.pos).all()):
+            raise RuntimeError(f"theta=0.5 steps: mass {qm1} against {qm0}")
+        log(f"theta=0.5: two steps conserve mass ({qm1:.6e}), positions "
+            "finite")
+        del qds, q2
+        stage_report()
+
+        # -- exact parity: the ring with full far caps against one device.
+        # With caps at least the level widths and a frontier of half the
+        # global leaves, every stage tests the nodes of the single-device
+        # walk (the JAX package's contract), so only sums differ in order.
+        fe = N_DIST_EXACT // 64 // 2
+        ecfg = SimConfig(force_path="bh", theta=0.5, frontier_cap=fe,
+                         leaf_cap=256, plan_leaves=1,
+                         unweighted_leaf_com=False, far_mode="ring",
+                         far_frontier_cap=fe, far_leaf_cap=256)
+        eds = par.distribute_state(uniform_disc(N_DIST_EXACT, seed=0), mesh,
+                                   ecfg)
+        dist_e = par.bh_distributed_accel(eds.pos, eds.mass, mesh,
+                                          config=ecfg)
+        one_e = traversal.bh_accel(
+            eds.pos, eds.mass, theta=0.5, unweighted_leaf_com=False,
+            frontier_cap=fe, leaf_cap=256, multipole=2, morton_bits=24)
+        emed, ep99 = rel_err(dist_e, one_e, eds.mass > 0)
+        log(f"ring with full far caps vs single-device bh_accel "
+            f"(uniform_disc N={N_DIST_EXACT}, P={DIST_P}, theta=0.5, caps "
+            f"F={fe} L=256): median "
+            f"{emed:.3e} (bound 1e-6), p99 {ep99:.3e} (bound 1e-5)")
+        if not (emed < 1e-6 and ep99 < 1e-5):
+            raise RuntimeError(f"exact ring parity {emed}, {ep99}")
+        del eds, dist_e, one_e
+        stage_report()
+
+        # -- the gradient, P=4, on the galaxy's first 2^17 rows
+        mesh4 = par.LocalMesh(4, dev)
+        gal = galaxy(seed=0)
+        gal = ParticleState(gal.pos[:N_DIST_GRAD], gal.vel[:N_DIST_GRAD],
+                            gal.mass[:N_DIST_GRAD])
+        grad_counts = {}
+        # The caps of the JAX package's equivalence contract: a frontier of
+        # half the global leaves and a leaf list of all of them, at every
+        # ring distance, so that both walks open the same nodes.
+        fcap_g = N_DIST_GRAD // 64 // 2
+        lcap_g = N_DIST_GRAD // 64
+        for theta in (50.0, 0.5):
+            gcfg = SimConfig(force_path="bh", theta=theta,
+                             unweighted_leaf_com=False, frontier_cap=fcap_g,
+                             leaf_cap=lcap_g, plan_leaves=1, far_mode="ring",
+                             far_frontier_cap=fcap_g, far_leaf_cap=lcap_g,
+                             morton_bits=15, multipole=1)
+            gds = par.distribute_state(gal, mesh4, gcfg)
+            if gds.n != N_DIST_GRAD:
+                raise RuntimeError(f"gradient layout {gds.n} rows")
+            cot = torch.tensor(np.random.default_rng(3).normal(
+                0, 1, (gds.n, 2)).astype(np.float32), device=dev)
+            run = par.bh_distributed_accel(gds.pos, gds.mass, mesh4,
+                                           config=gcfg)
+            p = gds.pos.clone().requires_grad_(True)
+            m = gds.mass.clone().requires_grad_(True)
+            zero_counts()
+            t0 = time.perf_counter()
+            a = par.bh_distributed_accel_diff(p, m, mesh4, config=gcfg)
+            gp, gm = torch.autograd.grad((a * cot).sum(), (p, m))
+            torch.cuda.synchronize()
+            vg_ms = (time.perf_counter() - t0) * 1e3
+            grad_counts[theta] = read_counts()
+            if not torch.equal(a.detach(), run):
+                raise RuntimeError(f"theta={theta}: bh_distributed_accel_diff "
+                                   "differs from bh_distributed_accel")
+            p1 = gds.pos.clone().requires_grad_(True)
+            m1 = gds.mass.clone().requires_grad_(True)
+            a1 = tgr.bh_accel_diff(p1, m1, theta=theta, frontier_cap=fcap_g,
+                                   leaf_cap=lcap_g, unweighted_leaf_com=False,
+                                   plan_leaves=1, rcp=gcfg.resolved_rcp(
+                                       bh=True))
+            gp1, gm1 = torch.autograd.grad((a1 * cot).sum(), (p1, m1))
+            # Positions: the JAX test's bounds. Masses: rtol 2e-4 and an
+            # atol of 1e-6 of the largest |g_m|. Each g_m is a sum of
+            # terms of random sign (a random cotangent) that autograd's
+            # atomics add in no fixed order, so entries that cancel to near
+            # 0 carry ~1e-7 of the terms' scale; the JAX test's atol of
+            # 1e-8 is sized for its unit-mass disc.
+            m_atol = 1e-6 * gm1.abs().max().item()
+            ok = (torch.allclose(a.detach(), a1.detach(), rtol=2e-4,
+                                 atol=1e-6)
+                  and torch.allclose(gp, gp1, rtol=2e-4, atol=1e-6)
+                  and torch.allclose(gm, gm1, rtol=2e-4, atol=m_atol))
+            dp = ((gp - gp1).abs() / (1e-6 + 2e-4 * gp1.abs())).max().item()
+            dm = ((gm - gm1).abs() / (m_atol + 2e-4 * gm1.abs())).max().item()
+            over = int(((gm - gm1).abs() > 1e-8 + 2e-4 * gm1.abs()).sum())
+            rel_m = ((gm - gm1).norm() / gm1.norm()).item()
+            rel_p = ((gp - gp1).norm() / gp1.norm()).item()
+            log(f"bh_distributed_accel_diff theta={theta} P=4 (galaxy, "
+                f"{N_DIST_GRAD} rows, caps F={fcap_g} L={lcap_g}): forward "
+                f"bitwise bh_distributed_accel; gradient of sum(a*cot) vs "
+                f"single-device bh_accel_diff: pos {dp:.3f} of the allowed "
+                f"(rtol 2e-4, atol 1e-6), relative norm {rel_p:.3e}; mass "
+                f"{dm:.3f} of the allowed (rtol 2e-4, atol {m_atol:.3e}), "
+                f"relative norm {rel_m:.3e}, {over} of {gm.numel()} beyond "
+                f"atol 1e-8; value+grad {vg_ms:.1f} ms; launches "
+                f"{grad_counts[theta]}")
+            if not ok or not grad_counts[theta].get("K8a"):
+                raise RuntimeError(f"distributed gradient theta={theta}: "
+                                   f"{dp}, {dm}, launches "
+                                   f"{grad_counts[theta]}")
+        del gds, p, m, a, gp, gm, p1, m1, a1, gp1, gm1, run, cot
+        stage_report()
+    finally:
+        bd._sweep = real_sweep
+
+    # -- the kernels at this path's row shapes: K3 (and K8) from the θ=50
+    # stages' inputs
+    kernel_rows = {}
+    for stage, (tgt, cols, rcp) in sorted(first.items()):
+        g, s, _ = tgt.shape
+        if s not in (512, 2048):
+            continue
+        label = f"{stage} rows (G={g}, S={s}, C={cols[0].shape[1]})"
+        lim = traversal.last_nonzero_columns(cols[2])
+        errs = h.hold_mono(f"K3 at the {label}", (tgt, *cols[:3], lim),
+                           [rcp])
+        ms = h.timed_ms(lambda: traversal.grouped_sweep(
+            tgt, *cols[:3], h.softening2, rcp, col_limit=lim), reps=10)
+        mode = h.rcp_modes.index(rcp)
+        pairs = float(lim.sum().item()) * s
+        bd_ = h.bound("sweep", rcp, pairs,
+                      4.0 * (3 * lim.sum().item() + 4 * g * s) + 4 * g,
+                      "grouped_sweep", f"grouped_sweep_kernelILi{mode}EE")
+        _, plain_ms = h.plain_timed(lambda: traversal.grouped_force_ref(
+            tgt, *cols[:3], h.softening2))
+        kernel_rows[f"K3 {stage} S={s}"] = (errs[rcp], ms, plain_ms, bd_)
+        log(f"K3 at the {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+            f"(once), bound {bd_[0]:.4f} ms by {bd_[1]}")
+        if stage == "forest":
+            # K8 at the same shape, a random cotangent.
+            gbar = torch.tensor(np.random.default_rng(11).normal(
+                0, 1, tuple(tgt.shape)).astype(np.float32), device=dev)
+            kernel_rows.update(
+                (f"{k} {stage} S={s}", v) for k, v in h.hold_k8(
+                    f"K8 at the {label}", (tgt, gbar, *cols[:3])).items())
+
+    # At P=8 every pair of non-neighbours is a θ=0.5 seam (the shards'
+    # boxes overlap), so the θ=0.5 forest rows sweep no live column. K4 is
+    # held at their shape (S=2048, 32 leaves a row) on the single-device
+    # planner's columns of the 65,536-body Plummer at θ=0.5.
+    from nbody_simulation_tpu_torch.ops.tree import build_tree
+    kst = plummer(N_PLUMMER, seed=0).to(dev)
+    ktree, _ = build_tree(kst.pos, kst.mass, unweighted_leaf_com=False,
+                          morton_bits=24, quad=True)
+    kin = traversal.sweep_inputs(ktree, 0.5, 128, 256,
+                                 plan_leaves=FOREST_ROWS, multipole=2)
+    errs, plain_ms, ms_b, _, bd_ = h.hold_quad(
+        f"K4 at the forest rows' shape (Plummer N={N_PLUMMER}, theta=0.5, "
+        f"{FOREST_ROWS} leaves a row)", kin, ("newton",), "newton", reps=5)
+    kernel_rows[f"K4 forest-row shape S={kin[0].shape[1]}"] = (
+        errs["newton"], ms_b, plain_ms, bd_)
+    del kst, ktree, kin
+    log(f"phase distributed Barnes-Hut: {time.perf_counter() - t_phase:.1f} s")
+    log(f"distributed BH self-check: the distributed force vs single-device "
+        f"bh_accel on the same N={N_DIST} state: median relative "
+        f"{self_med:.4e}, p99 {self_p99:.4e}")
+    launches = {"theta=50 main path": main_counts,
+                "theta=0.5 forest call": q_counts,
+                "exact energy": energy_counts}
+    launches.update({f"gradient theta={t}": c
+                     for t, c in grad_counts.items()})
+    return launches, kernel_rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -509,10 +1005,6 @@ def main() -> int:
         kernel's share (the CUPTI trace; untraced rates are taken apart)."""
         from torch.profiler import ProfilerActivity, profile
 
-        def dev_us(e):
-            return (getattr(e, "self_device_time_total", 0)
-                    or getattr(e, "self_cuda_time_total", 0))
-
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -562,6 +1054,83 @@ def main() -> int:
         return spos, smass, tree, traversal.sweep_inputs(
             tree, c.theta, fcap, lcap, arity=c.tree_arity,
             plan_leaves=c.plan_leaves, multipole=c.resolved_multipole())
+
+    def grad_magnitudes(xi, yi, gx, gy, xj, yj, mj):
+        """|m·r·g| + |m·r²·t·(psign·q + 2sκ·d)| per component, and |r·t|:
+        the magnitudes the rounding of u and r·t scales with. u itself is
+        a poor scale: inside the softening its two terms cancel (for d
+        along g exactly), and on the galaxy's K8 shape the plain f32
+        version lies 5.1e-4·Σ|u| from an f64 truth but 5.6e-7 of these
+        sums (CPU run)."""
+        dx, dy = xj - xi, yj - yi
+        s, q, r, kappa = agr.pair_terms(dx, dy, SOFTENING2)
+        mr = mj * r
+        mr2t = (mj * (r * r) * (dx * gx + dy * gy)).abs()
+        two_sk = 2.0 * s * kappa
+        return ((mr * gx).abs() + mr2t * (q + (two_sk * dx).abs()),
+                (mr * gy).abs() + mr2t * (q + (two_sk * dy).abs()),
+                (r * (dx * gx + dy * gy)).abs())
+
+    def hold_k8(label, k8in):
+        """K8a and K8b against their plain versions on ``k8in`` = (tgt,
+        gbar, src_x, src_y, src_m), every output, bounded relative to the
+        sums of ``grad_magnitudes``; with their times and bounds. Returns
+        {"K8a": ..., "K8b": ...} of (max |d|, kernel ms, plain ms,
+        bound)."""
+        kt, kgb, kx, ky, km = k8in
+        kg, ks, _ = kt.shape
+        kc = kx.shape[1]
+        scale = [torch.empty_like(kt)] + [torch.empty_like(kx)
+                                          for _ in range(3)]
+        chunk = max(1, (1 << 25) // (ks * kc))
+        for g0 in range(0, kg, chunk):
+            sl = slice(g0, g0 + chunk)
+            ux, uy, rt = grad_magnitudes(
+                kt[sl, :, 0:1], kt[sl, :, 1:2], kgb[sl, :, 0:1],
+                kgb[sl, :, 1:2], kx[sl, None], ky[sl, None], km[sl, None])
+            scale[0][sl] = torch.stack([ux.sum(-1), uy.sum(-1)], -1)
+            for k, term in enumerate((ux, uy, rt)):
+                scale[k + 1][sl] = term.sum(1)
+        want_t, tgt_plain_ms = plain_timed(
+            lambda: tgr.grouped_bwd_tgt_ref(*k8in, SOFTENING2))
+        want_s, src_plain_ms = plain_timed(
+            lambda: tgr.grouped_bwd_src_ref(*k8in, SOFTENING2))
+        got_t = tgr.grouped_bwd_tgt_cuda(*k8in, SOFTENING2)
+        got_s = tgr.grouped_bwd_src_cuda(*k8in, SOFTENING2)
+        again_t = tgr.grouped_bwd_tgt_cuda(*k8in, SOFTENING2)
+        again_s = tgr.grouped_bwd_src_cuda(*k8in, SOFTENING2)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_t, again_t) and all(
+                torch.equal(a, b) for a, b in zip(got_s, again_s))):
+            raise RuntimeError(f"{label}: two K8 calls on the same input "
+                               "differ")
+        err_a = hold(f"{label}: grouped_bwd_tgt vs plain, bound relative to "
+                     "sum(|m r g|+|m r^2 t (..)|); two calls bitwise",
+                     got_t, want_t, scale[0])
+        err_b = max(hold(f"{label}: grouped_bwd_src {lab} vs plain, bound "
+                         "relative to " + ("sum|r t|" if lab == "m" else
+                                           "sum(|m r g|+|m r^2 t (..)|)"),
+                         got, want, sc)
+                    for lab, got, want, sc in zip("xym", got_s, want_s,
+                                                  scale[1:]))
+        del want_t, want_s, scale, got_t, got_s, again_t, again_s
+        ms_a = timed_ms(lambda: tgr.grouped_bwd_tgt_cuda(*k8in, SOFTENING2),
+                        reps=20)
+        ms_b = timed_ms(lambda: tgr.grouped_bwd_src_cuda(*k8in, SOFTENING2),
+                        reps=20)
+        pairs = float(kg) * ks * kc
+        in_bytes = 4.0 * (4 * kg * ks + 3 * kg * kc)
+        bound_a = bound("grad_i", "newton", pairs, in_bytes + 8.0 * kg * ks,
+                        "force_grad", "grouped_bwd_tgt")
+        bound_b = bound("grad_j", "newton", pairs, in_bytes + 12.0 * kg * kc,
+                        "force_grad", "grouped_bwd_src")
+        for name, ms, pl_ms, bd in (
+                ("grouped_bwd_tgt (K8a)", ms_a, tgt_plain_ms, bound_a),
+                ("grouped_bwd_src (K8b)", ms_b, src_plain_ms, bound_b)):
+            log(f"{label}: {name} kernel {ms:.4f} ms, plain {pl_ms:.3f} ms "
+                f"(once), bound {bd[0]:.4f} ms by {bd[1]} ({bd[2]})")
+        return {"K8a": (err_a, ms_a, tgt_plain_ms, bound_a),
+                "K8b": (err_b, ms_b, src_plain_ms, bound_b)}
 
     # -- 2. K3: sweep kernel vs plain version at the main path's shapes -------
     t_phase = time.perf_counter()
@@ -818,6 +1387,18 @@ def main() -> int:
             f"{ms_bound:.4f} ms; plain torch {plain_ms:.3f} ms (once); bound "
             f"{bd[0]:.4f} ms by {bd[1]} ({bd[2]})")
         return errs, plain_ms, ms_bound, ms_full, bd
+
+    helpers = types.SimpleNamespace(
+        log=log, dev=dev, hold=hold, hold_mono=hold_mono, hold_quad=hold_quad,
+        hold_k8=hold_k8, timed_ms=timed_ms, plain_timed=plain_timed,
+        bound=bound, dev_us=dev_us, softening2=SOFTENING2,
+        rcp_modes=RCP_MODES)
+    if "--only-distributed" in sys.argv[1:]:
+        # A developer's run of the distributed phase alone (after the
+        # monopole sweep's); no result line.
+        launches, rows = distributed_phase(helpers)
+        log(f"distributed BH launches per kernel: {json.dumps(launches)}")
+        return 0
 
     # The 65,536-body Plummer cluster at θ=0.5 with mass-weighted leaf COMs:
     # first with one leaf per planning row, the JAX package's force-error
@@ -1252,22 +1833,6 @@ def main() -> int:
     # -- 8b. the gradient path: K7 and K8 ------------------------------------
     t_phase = time.perf_counter()
 
-    def grad_magnitudes(xi, yi, gx, gy, xj, yj, mj):
-        """|m·r·g| + |m·r²·t·(psign·q + 2sκ·d)| per component, and |r·t|:
-        the magnitudes the rounding of u and r·t scales with. u itself is
-        a poor scale: inside the softening its two terms cancel (for d
-        along g exactly), and on the galaxy's K8 shape the plain f32
-        version lies 5.1e-4·Σ|u| from an f64 truth but 5.6e-7 of these
-        sums (CPU run)."""
-        dx, dy = xj - xi, yj - yi
-        s, q, r, kappa = agr.pair_terms(dx, dy, SOFTENING2)
-        mr = mj * r
-        mr2t = (mj * (r * r) * (dx * gx + dy * gy)).abs()
-        two_sk = 2.0 * s * kappa
-        return ((mr * gx).abs() + mr2t * (q + (two_sk * dx).abs()),
-                (mr * gy).abs() + mr2t * (q + (two_sk * dy).abs()),
-                (r * (dx * gx + dy * gy)).abs())
-
     def grad_sums(pos_i, g_i, pos_j, mass_j, side):
         """``grad_magnitudes`` summed over the other axis, per target
         (``side="i"``: the x and y scales) or per source (``"j"``: those
@@ -1360,33 +1925,7 @@ def main() -> int:
     k8g = torch.tensor(grng.normal(0, 1, (kg, ks, 2)).astype(np.float32),
                        device=dev)
     k8in = (k8t, k8g, k8x, k8y, k8m)
-    k8_scale = [torch.empty_like(k8t)] + [torch.empty_like(k8x)
-                                         for _ in range(3)]
-    chunk = max(1, (1 << 25) // (ks * kc))
-    for g0 in range(0, kg, chunk):
-        sl = slice(g0, g0 + chunk)
-        ux, uy, rt = grad_magnitudes(
-            k8t[sl, :, 0:1], k8t[sl, :, 1:2], k8g[sl, :, 0:1],
-            k8g[sl, :, 1:2], k8x[sl, None], k8y[sl, None], k8m[sl, None])
-        k8_scale[0][sl] = torch.stack([ux.sum(-1), uy.sum(-1)], -1)
-        for k, term in enumerate((ux, uy, rt)):
-            k8_scale[k + 1][sl] = term.sum(1)
-    k8_tgt, k8_tgt_plain_ms = plain_timed(
-        lambda: tgr.grouped_bwd_tgt_ref(*k8in, SOFTENING2))
-    k8_src, k8_src_plain_ms = plain_timed(
-        lambda: tgr.grouped_bwd_src_ref(*k8in, SOFTENING2))
-    k8a_err = hold("K8a galaxy: grouped_bwd_tgt vs plain, bound relative to "
-                   "sum(|m r g|+|m r^2 t (..)|)",
-                   tgr.grouped_bwd_tgt_cuda(*k8in, SOFTENING2), k8_tgt,
-                   k8_scale[0])
-    k8b_err = max(hold(f"K8b galaxy: grouped_bwd_src {lab} vs plain, bound "
-                       "relative to " + ("sum|r t|" if lab == "m" else
-                                         "sum(|m r g|+|m r^2 t (..)|)"),
-                       got, want, sc)
-                  for lab, got, want, sc in zip(
-                      "xym", tgr.grouped_bwd_src_cuda(*k8in, SOFTENING2),
-                      k8_src, k8_scale[1:]))
-    del k8_tgt, k8_src, k8_scale
+    k8_main = hold_k8("K8 galaxy", k8in)
 
     # An independent truth: f64 torch autograd of the direct sum on a
     # random cloud (off the law's kinks, where autograd is the derivative).
@@ -1493,10 +2032,6 @@ def main() -> int:
     # K8's share.
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", 0)
-                or getattr(e, "self_cuda_time_total", 0))
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1551,28 +2086,14 @@ def main() -> int:
         gpos, gbar, gpos, gmass, SOFTENING2))
     _, ms_k7b_plain = plain_timed(lambda: agr.bwd_j_ref(
         gpos, gbar, gpos, gmass, SOFTENING2))
-    ms_k8a = timed_ms(lambda: tgr.grouped_bwd_tgt_cuda(*k8in, SOFTENING2),
-                      reps=20)
-    ms_k8b = timed_ms(lambda: tgr.grouped_bwd_src_cuda(*k8in, SOFTENING2),
-                      reps=20)
     k7_pairs = float(n_gal) * n_gal
-    k8_pairs = float(kg) * ks * kc
     k7a_bound = bound("grad_i", "newton", k7_pairs, 4.0 * 9 * n_gal,
                       "force_grad", "allpairs_bwd_i")
     k7b_bound = bound("grad_j", "newton", k7_pairs, 4.0 * 10 * n_gal,
                       "force_grad", "allpairs_bwd_j")
-    k8_in_bytes = 4.0 * (4 * kg * ks + 3 * kg * kc)
-    k8a_bound = bound("grad_i", "newton", k8_pairs,
-                      k8_in_bytes + 8.0 * kg * ks, "force_grad",
-                      "grouped_bwd_tgt")
-    k8b_bound = bound("grad_j", "newton", k8_pairs,
-                      k8_in_bytes + 12.0 * kg * kc, "force_grad",
-                      "grouped_bwd_src")
     for name, ms, pl_ms, bd in (
             ("allpairs_bwd_i (K7a)", ms_k7a, ms_k7a_plain, k7a_bound),
-            ("allpairs_bwd_j (K7b)", ms_k7b, ms_k7b_plain, k7b_bound),
-            ("grouped_bwd_tgt (K8a)", ms_k8a, k8_tgt_plain_ms, k8a_bound),
-            ("grouped_bwd_src (K8b)", ms_k8b, k8_src_plain_ms, k8b_bound)):
+            ("allpairs_bwd_j (K7b)", ms_k7b, ms_k7b_plain, k7b_bound)):
         log(f"{name}: kernel {ms:.4f} ms, plain {pl_ms:.3f} ms (once), "
             f"bound {bd[0]:.4f} ms by {bd[1]} ({bd[2]})")
     del gal0, gtree, k8in, k8t, k8g, k8x, k8y, k8m, gbar
@@ -2248,6 +2769,12 @@ def main() -> int:
         + ("(PIL)" if has_pil else "(utils/pngio)"))
     log(f"phase application: {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 12. the fully distributed Barnes-Hut path ----------------------------
+    dist_launches, dist_rows = distributed_phase(helpers)
+    for name, (err, ms, plain_ms, bd) in dist_rows.items():
+        log(f"{name}: max |d| {err:.3e}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]}")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bd):
         return {"name": name, "route": "cuda",
                 "source": f"nbody_simulation_tpu_torch/csrc/{source}",
@@ -2281,16 +2808,17 @@ def main() -> int:
               ms_k7b, ms_k7b_plain, k7b_bound),
         entry("grouped_bwd_tgt", "force_grad.cu",
               "nbody_simulation_tpu/ops/traversal_grad.py:128", traj["K8a"],
-              k8a_err, ms_k8a, k8_tgt_plain_ms, k8a_bound),
+              *k8_main["K8a"]),
         entry("grouped_bwd_src", "force_grad.cu",
               "nbody_simulation_tpu/ops/traversal_grad.py:143", traj["K8b"],
-              k8b_err, ms_k8b, k8_src_plain_ms, k8b_bound),
+              *k8_main["K8b"]),
         entry("allpairs_sym_pair", "allpairs.cu",
               "nbody_simulation_tpu/ops/allpairs.py:441", p3_counts["K9"],
               k9_err[main_ap], ms_k9, ms_k9_plain, k9_bound),
     ]}
     log(f"chip_smoke: every check passed in "
         f"{time.perf_counter() - t_start:.1f} s")
+    log(f"distributed BH launches per kernel: {json.dumps(dist_launches)}")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

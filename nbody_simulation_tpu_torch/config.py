@@ -5,10 +5,6 @@ Field names, defaults and the ``resolved_*`` rules are identical to
 them equal field by field); that module documents why each default was
 chosen. The defaults are the reference's compile-time consts (reference
 src/main.rs:31-35, src/bvh_tree.rs:37).
-
-Some fields configure paths this package has not ported yet (distributed
-BH); they are kept so a config round-trips between the two packages
-unchanged.
 """
 
 from __future__ import annotations
@@ -127,7 +123,10 @@ class SimConfig:
     # (ops/traversal.bh_accel_sorted), bitwise the full sweep's result.
     sweep_buckets: tuple | None = None
 
-    # Distributed-BH knobs (parallel/ in the JAX package; not ported yet).
+    # Distributed-BH knobs (parallel/bh_distributed.py): the far stages'
+    # caps in ring mode, "ring" or "forest" (the default), the forest's
+    # gathered levels, and the near stages' refinement (``near_remote``:
+    # the compute-to-data exchange).
     far_frontier_cap: int | None = None
     far_leaf_cap: int | None = None
     far_mode: str | None = None

@@ -8,6 +8,10 @@ with ``state.to(device)``.
 ``galaxy`` is the reference's World::new (reference src/main.rs:275-346):
 two heavy bodies, a lattice annulus around body 2 and a center-biased
 100,000-body disc — 151,317 particles at seed 0.
+
+``galaxy_chunk`` and ``scenario_chunk`` give one process's chunk of a
+scenario, for ``parallel.multihost.multihost_state``: each process builds
+only its own rows.
 """
 
 from __future__ import annotations
@@ -122,6 +126,72 @@ def uniform_disc(n: int, seed: int = 0, radius: float = 25_000.0,
                     np.sin(theta) * r + center[1]], axis=-1).astype(np.float32)
     vel = _rand_disc(rng, n)
     return ParticleState.create(pos, vel, np.ones(n, np.float32))
+
+
+def _chunk_bounds(n: int, pid: int, nproc: int) -> tuple[int, int]:
+    """Row range [lo, hi) of process ``pid``'s chunk of ``n`` rows: the one
+    row split, ``parallel.multihost.chunk_bounds``."""
+    from nbody_simulation_tpu_torch.parallel.multihost import chunk_bounds
+    return chunk_bounds(n, pid, nproc)
+
+
+def _rows_of(state: ParticleState, lo: int, hi: int) -> ParticleState:
+    return ParticleState.create(state.pos[lo:hi].numpy(),
+                                state.vel[lo:hi].numpy(),
+                                state.mass[lo:hi].numpy())
+
+
+def galaxy_chunk(pid: int, nproc: int, seed: int = 0,
+                 world_size: float = 100_000.0,
+                 n_random: int = 100_000) -> ParticleState:
+    """Process ``pid``'s chunk of the galaxy. The union over the ``nproc``
+    chunks has the galaxy's two heavy bodies and annulus exactly (every
+    process draws the small lattice mask and keeps its band), and its
+    ``n_random`` disc bodies split evenly, drawn from per-process seeds:
+    the same distribution, another draw. ``nproc == 1`` is ``galaxy``
+    bitwise."""
+    if nproc == 1:
+        return galaxy(seed=seed, world_size=world_size, n_random=n_random)
+    full = galaxy(seed=seed, world_size=world_size, n_random=0)
+    lo, hi = _chunk_bounds(full.n, pid, nproc)
+    pos = [full.pos[lo:hi].numpy()]
+    vel = [full.vel[lo:hi].numpy()]
+    mass = [full.mass[lo:hi].numpy()]
+    dlo, dhi = _chunk_bounds(n_random, pid, nproc)
+    if dhi > dlo:
+        rng = np.random.default_rng(np.random.SeedSequence([seed, 977, pid]))
+        offset = np.array([50_000.0, 50_000.0], np.float32)
+        pos.append(_rand_disc(rng, dhi - dlo) * np.float32(25_000.0)
+                   + offset)
+        vel.append(_rand_disc(rng, dhi - dlo))
+        mass.append(np.ones(dhi - dlo, np.float32))
+    return ParticleState.create(
+        np.concatenate(pos), np.concatenate(vel), np.concatenate(mass))
+
+
+def scenario_chunk(name: str, pid: int, nproc: int, seed: int = 0,
+                   exact: bool = False, **kw) -> ParticleState:
+    """Process ``pid``'s chunk of a named scenario.
+
+    ``exact=False``: each process draws only its rows from a per-process
+    seed (the same distribution, another draw). ``exact=True``: each
+    process draws the whole scenario and keeps its band, so the union is
+    the one-process scenario bitwise whatever ``nproc``. ``collision``
+    always takes the exact form (its two cores are structural)."""
+    if name == "galaxy":
+        if exact and nproc > 1:
+            full = galaxy(seed=seed, **kw)
+            return _rows_of(full, *_chunk_bounds(full.n, pid, nproc))
+        return galaxy_chunk(pid, nproc, seed=seed, **kw)
+    gen = {"uniform": uniform_disc, "plummer": plummer,
+           "collision": collision}[name]
+    if exact or nproc == 1 or name == "collision":
+        full = gen(seed=seed, **kw)
+        return _rows_of(full, *_chunk_bounds(full.n, pid, nproc))
+    pseed = np.random.SeedSequence([seed, 7919, pid]).generate_state(1)[0]
+    n = kw.pop("n")
+    lo, hi = _chunk_bounds(n, pid, nproc)
+    return gen(hi - lo, seed=int(pseed), **kw)
 
 
 def plummer(n: int, seed: int = 0, scale_radius: float = 5_000.0,

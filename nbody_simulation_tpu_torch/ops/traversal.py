@@ -142,14 +142,26 @@ def bh_plan_sources(tree: FlatTree, theta: float, frontier_cap: int,
 
 
 def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
-              leaf_cap: int, arity: int = 2, multipole: int = 1):
-    """The planner over explicit own-AABB rows (one per planning row).
+              leaf_cap: int, arity: int = 2, multipole: int = 1,
+              max_levels: int | None = None, seed=None,
+              return_frontier: bool = False):
+    """The planner over explicit own-AABB rows (one per planning row; only
+    ``own.aabb_min`` and ``own.aabb_max`` are read).
 
     Returns ``(src_x, src_y, src_m)`` of (G, C), plus ``(src_qxx, src_qxy,
     src_qyy)`` with ``multipole=2`` (Q only where a node was accepted and is
     separated in both axes; overflow fallbacks and leaf particles carry 0).
-    Only the unbounded walk is ported; the bounded walk and seeded frontiers
-    serve the distributed paths, which are not.
+
+    ``max_levels``: the bounded walk. It expands at most this many levels
+    past the seed level, then flushes: every node still open at the cut
+    level becomes a COM column, monopole only even at ``multipole=2`` (the
+    nodes failed the θ test), and no leaf tile is gathered, so it serves
+    trees without leaf data (the distributed forest). ``seed``: ``(level,
+    frontier, valid)`` resumes a walk from an explicit frontier at
+    ``level`` (its width must equal ``frontier_cap``).
+    ``return_frontier``: with ``max_levels``, skip the flush and return
+    ``(cols, frontier, valid)``, the columns of the walked levels only.
+    The default, unbounded and unseeded, walks to the leaves.
     """
     if multipole not in (1, 2):
         raise ValueError(f"multipole must be 1 or 2, got {multipole}")
@@ -164,7 +176,13 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
     # θ²/4 as the JAX package writes it, jnp.float32(theta * theta * 0.25)
     # (equal to theta2 / 4: scaling by 4 commutes with the rounding).
     tight2 = float(np.float32(theta * theta * 0.25))
-    k0 = min(max(F.bit_length() - 1, 0), depth - 1) if depth > 0 else 0
+    if seed is not None:
+        k0 = seed[0]
+        if seed[1].shape[1] != F:
+            raise ValueError(f"a seeded frontier must be {F} wide, got "
+                             f"{tuple(seed[1].shape)}")
+    else:
+        k0 = min(max(F.bit_length() - 1, 0), depth - 1) if depth > 0 else 0
 
     def level_body(packed_child, frontier, valid, fan, cap):
         """Expand one level: test fan·F candidate children, emit their COM
@@ -223,24 +241,34 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
                           for k in range(3))
         return new_list, new_valid, cols
 
+    def packed_of(level):
+        return level.packed_quad if quad else level.packed
+
     src_cols = [[] for _ in range(6 if quad else 3)]
-    width = 1 << k0
-    frontier = torch.zeros((g_rows, max(F, width)), dtype=torch.int32,
-                           device=dev)
-    frontier[:, :width] = torch.arange(width, dtype=torch.int32, device=dev)
-    valid = (torch.arange(frontier.shape[1], device=dev) < width
-             ).expand(g_rows, -1)
+    if seed is not None:
+        frontier, valid = seed[1], seed[2]
+    else:
+        width = 1 << k0
+        frontier = torch.zeros((g_rows, max(F, width)), dtype=torch.int32,
+                               device=dev)
+        frontier[:, :width] = torch.arange(width, dtype=torch.int32,
+                                           device=dev)
+        valid = (torch.arange(frontier.shape[1], device=dev) < width
+                 ).expand(g_rows, -1)
     leaf_ids = torch.zeros((g_rows, 1), dtype=torch.int32, device=dev)
     leaf_valid = torch.ones((g_rows, 1), dtype=torch.bool, device=dev)
 
+    # The bounded walk's cut: the deepest level it expands to, then flushes.
+    cut = None if max_levels is None else min(depth, k0 + max_levels)
+    end = depth if cut is None else cut
     lvl = k0
-    while lvl < depth:
-        step = 2 if (arity == 4 and lvl + 2 <= depth) else 1
-        last = lvl + step >= depth
+    while lvl < end:
+        step = 2 if (arity == 4 and lvl + 2 <= end) else 1
+        last = cut is None and lvl + step >= depth
         level = tree.levels[lvl + step]
         out_list, out_valid, cols = level_body(
-            level.packed_quad if quad else level.packed, frontier, valid,
-            1 << step, leaf_cap if last else F)
+            packed_of(level), frontier, valid, 1 << step,
+            leaf_cap if last else F)
         if last:
             leaf_ids, leaf_valid = out_list, out_valid
         else:
@@ -248,6 +276,24 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
         for k, col in enumerate(cols):
             src_cols[k].append(col)
         lvl += step
+
+    def joined():
+        return tuple(torch.cat(c, dim=1) if c else
+                     torch.zeros((g_rows, 0), device=dev) for c in src_cols)
+
+    if cut is not None and return_frontier:
+        return joined(), frontier, valid
+    if cut is not None:
+        # Flush: the still-open frontier nodes at the cut become COM
+        # columns (close nodes: monopole only, like the overflow fallback).
+        rec = _rows(packed_of(tree.levels[cut]), frontier.to(torch.int64))
+        zero = torch.zeros((), device=dev)
+        src_cols[0].append(rec[..., 4])
+        src_cols[1].append(rec[..., 5])
+        src_cols[2].append(torch.where(valid, rec[..., 6], zero))
+        for k in range(3, len(src_cols)):
+            src_cols[k].append(torch.zeros(frontier.shape, device=dev))
+        return joined()
 
     # Leaf tiles: gather (G, L, S) particle data; invalid slots massless,
     # particles without second moments.

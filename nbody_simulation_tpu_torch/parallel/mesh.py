@@ -18,6 +18,15 @@ A sharded function sees its local arrays as S shards (``n_local``: P or 1)
 of L rows each and runs per-shard work with ``map_shards``; per-shard
 values it reduces are stacked ``[S, …]`` for ``psum``/``pmax``. So each
 ring of ``parallel/`` is written once, against this interface.
+
+Besides the ring shift (``ppermute``), ``ppermute_pairs`` moves blocks
+along an explicit list of (source, destination) pairs, and a shard that is
+no pair's destination receives zeros (JAX ``ppermute`` semantics).
+``ppermute_blocks`` and ``all_gather_blocks`` move a list of tensors of any
+shapes and dtypes per shard in one collective per dtype. On the
+process-group form the permutations and ``all_gather`` are autograd
+functions (the inverse permutation; a reduce-scatter), so gradients cross
+ranks; on ``LocalMesh`` they are tensor operations with their own.
 """
 
 from __future__ import annotations
@@ -26,6 +35,22 @@ import torch
 import torch.distributed as dist
 
 from nbody_simulation_tpu_torch.state import ParticleState
+
+# The mesh axis's name in the JAX package; the port's meshes have one axis.
+AXIS = "shard"
+
+
+def _check_pairs(n: int, pairs) -> tuple:
+    """``pairs`` as a tuple of (src, dst) int pairs, each shard at most once
+    a source and once a destination."""
+    pairs = tuple((int(s), int(d)) for s, d in pairs)
+    srcs = [s for s, _ in pairs]
+    dsts = [d for _, d in pairs]
+    if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+            or any(not (0 <= x < n) for x in srcs + dsts)):
+        raise ValueError(f"pairs must be a partial permutation of "
+                         f"{n} shards, got {pairs}")
+    return pairs
 
 
 def _resolve_device(device: str | torch.device) -> torch.device:
@@ -50,6 +75,7 @@ class LocalMesh:
         self.n_local = self.n_shards
         self.device = _resolve_device(device)
         self.shard_ids = list(range(self.n_shards))
+        self._perm_cache = {}
 
     def axis_index(self) -> torch.Tensor:
         """int64 [S]: the mesh index of each local shard."""
@@ -60,6 +86,26 @@ class LocalMesh:
         p = self.n_shards
         return torch.roll(x.reshape(p, -1, *x.shape[1:]), shift % p,
                           dims=0).reshape(x.shape)
+
+    def ppermute_pairs(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        """Shard s's block of ``x`` [S·L, …] goes to shard d for each (s, d)
+        of ``pairs``; a shard that is no destination gets zeros."""
+        p = self.n_shards
+        src = [-1] * p
+        for s, d in _check_pairs(p, pairs):
+            src[d] = s
+        xs = x.reshape(p, -1, *x.shape[1:])
+        key = (tuple(src), x.device)
+        if key not in self._perm_cache:
+            self._perm_cache[key] = (
+                torch.tensor([max(s, 0) for s in src], device=x.device),
+                torch.tensor([s >= 0 for s in src], device=x.device))
+        idx, keep = self._perm_cache[key]
+        out = xs.index_select(0, idx)
+        if min(src) < 0:
+            out = torch.where(keep.reshape(p, *(1,) * (xs.ndim - 1)), out,
+                              torch.zeros((), dtype=x.dtype, device=x.device))
+        return out.reshape(x.shape)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of per-shard values ``x`` [S, …] over every shard, in the
@@ -100,14 +146,27 @@ class ProcessGroupMesh:
 
     def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
         p = self.n_shards
-        shift %= p
-        if shift == 0:
-            return x
-        out = torch.empty_like(x)
-        ops = [dist.P2POp(dist.isend, x.contiguous(), (self.rank + shift) % p),
-               dist.P2POp(dist.irecv, out, (self.rank - shift) % p)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        return self.ppermute_pairs(x, [(i, (i + shift) % p)
+                                       for i in range(p)])
+
+    def ppermute_pairs(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        return _PPermute.apply(x, self, _check_pairs(self.n_shards, pairs))
+
+    def _send_recv(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        """The rank's block after the permutation ``pairs`` (no autograd)."""
+        to = [d for s, d in pairs if s == self.rank]
+        frm = [s for s, d in pairs if d == self.rank]
+        if to and to[0] == self.rank:
+            return x.clone()
+        out = torch.zeros_like(x)
+        ops = []
+        if to:
+            ops.append(dist.P2POp(dist.isend, x.contiguous(), to[0]))
+        if frm:
+            ops.append(dist.P2POp(dist.irecv, out, frm[0]))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
         return out
 
     def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
@@ -122,10 +181,27 @@ class ProcessGroupMesh:
         return self._reduce(x, dist.ReduceOp.MAX)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _AllGather.apply(x, self)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.empty((self.n_shards * x.shape[0], *x.shape[1:]),
                           dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, x.contiguous())
         return out
+
+    def _reduce_scatter(self, g: torch.Tensor) -> torch.Tensor:
+        """Σ over ranks of each rank's ``g`` [P·L, …], this rank's L rows.
+        gloo has no reduce-scatter: an all-reduce, then the rank's rows."""
+        rows = g.shape[0] // self.n_shards
+        g = g.contiguous()
+        if dist.get_backend() == "nccl":
+            out = torch.empty((rows, *g.shape[1:]), dtype=g.dtype,
+                              device=g.device)
+            dist.reduce_scatter_tensor(out, g)
+            return out
+        g = g.clone()                     # all_reduce works in place
+        dist.all_reduce(g)
+        return g[self.rank * rows:(self.rank + 1) * rows].clone()
 
     def local_rows(self, x: torch.Tensor) -> torch.Tensor:
         rows = x.shape[0] // self.n_shards
@@ -136,7 +212,84 @@ class ProcessGroupMesh:
                 f"{self.n_shards}, device={self.device})")
 
 
+class _PPermute(torch.autograd.Function):
+    """``ProcessGroupMesh.ppermute_pairs``; its backward sends the
+    cotangent back along the inverse pairs."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pairs):
+        ctx.mesh, ctx.pairs = mesh, pairs
+        return mesh._send_recv(x, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = tuple((d, s) for s, d in ctx.pairs)
+        return ctx.mesh._send_recv(g.contiguous(), inv), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """``ProcessGroupMesh.all_gather``; its backward is a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh._gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._reduce_scatter(g), None
+
+
 Mesh = LocalMesh | ProcessGroupMesh
+
+
+def _pack(parts):
+    """One flat buffer per dtype of the tensors ``parts``, and what
+    ``_unpack`` needs to cut it back."""
+    groups = {}
+    for i, t in enumerate(parts):
+        groups.setdefault(t.dtype, []).append(i)
+    bufs = {dt: torch.cat([parts[i].reshape(-1) for i in idx])
+            for dt, idx in groups.items()}
+    return bufs, (groups, [(t.shape, t.numel()) for t in parts])
+
+
+def _unpack(bufs, spec):
+    groups, shapes = spec
+    out = [None] * len(shapes)
+    for dt, idx in groups.items():
+        off = 0
+        for i in idx:
+            shape, n = shapes[i]
+            out[i] = bufs[dt][off:off + n].reshape(shape)
+            off += n
+    return out
+
+
+def _blocks(mesh: Mesh, parts, collective, n_out: int):
+    """``collective`` ([S·B] → [n_out·B]) on the per-shard tensor lists
+    ``parts`` (one list per local shard, alike in shapes and dtypes),
+    packed by dtype; returns ``n_out`` lists."""
+    packed = [_pack(list(p)) for p in parts]
+    spec = packed[0][1]
+    moved = {dt: collective(torch.cat([b[dt] for b, _ in packed]))
+             for dt in packed[0][0]}
+    return [_unpack({dt: m.reshape(n_out, -1)[k] for dt, m in moved.items()},
+                    spec) for k in range(n_out)]
+
+
+def ppermute_blocks(mesh: Mesh, parts, pairs):
+    """``ppermute_pairs`` of each local shard's list of tensors ``parts``
+    (lists alike in shapes and dtypes), one collective per dtype; returns
+    the local shards' received lists, zeros where no pair sends."""
+    return _blocks(mesh, parts, lambda x: mesh.ppermute_pairs(x, pairs),
+                   mesh.n_local)
+
+
+def all_gather_blocks(mesh: Mesh, parts):
+    """Every shard's list of tensors, in mesh order (P lists), from each
+    local shard's list ``parts``."""
+    return _blocks(mesh, parts, mesh.all_gather, mesh.n_shards)
 
 
 def make_1d_mesh(n_shards: int | None = None,

@@ -1,10 +1,17 @@
-"""Process-group set-up for the multi-process form of the mesh.
+"""Process-group set-up and per-process state for the multi-process mesh.
 
-The port of ``init_distributed`` from ``nbody_simulation_tpu/parallel/
-multihost.py``. After it returns, ``make_1d_mesh`` gives the
+The port of ``nbody_simulation_tpu/parallel/multihost.py``. After
+``init_distributed`` returns, ``make_1d_mesh`` gives the
 ``ProcessGroupMesh`` over every rank. Launch one process per card with
 ``torchrun --nproc-per-node=P`` (which sets the variables read below), or
 pass the arguments to each process yourself.
+
+``multihost_state`` builds the distributed layout of
+``parallel.bh_distributed.distribute_state`` without any process holding
+the whole system: each process brings its own chunk
+(``models.scenarios.scenario_chunk``), pads it to its shards' slots, and
+one collective Morton repartition (``parallel.repartition``) sorts and
+spreads it, bitwise ``distribute_state`` of the concatenated chunks.
 """
 
 from __future__ import annotations
@@ -12,8 +19,18 @@ from __future__ import annotations
 import os
 import socket
 
+import numpy as np
 import torch
 import torch.distributed as dist
+
+from nbody_simulation_tpu_torch.config import SimConfig
+from nbody_simulation_tpu_torch.state import PAD_POS, ParticleState
+
+
+def is_initialized() -> bool:
+    """True once the default ``torch.distributed`` group exists (a
+    one-process group included)."""
+    return dist.is_available() and dist.is_initialized()
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -64,3 +81,76 @@ def init_distributed(coordinator_address: str | None = None,
     dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)
+
+
+def local_layout(n_global: int, n_devices: int, config: SimConfig) -> int:
+    """Slots per shard L for ``n_global`` particles on ``n_devices`` shards,
+    the rounding of ``distribute_state``: a power-of-two leaf count times
+    ``leaf_size``."""
+    per_dev = -(-n_global // n_devices)
+    leaves = -(-per_dev // config.leaf_size)
+    leaves = 1 << max(0, (leaves - 1).bit_length())
+    return max(leaves * config.leaf_size, config.leaf_size)
+
+
+def process_allgather_counts(n_local: int) -> np.ndarray:
+    """Every process's chunk size, in rank order (int64), from a
+    ``torch.distributed`` all-gather of one count; ``[n_local]`` without a
+    group of several processes."""
+    if not is_initialized() or dist.get_world_size() == 1:
+        return np.array([n_local], np.int64)
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, int(n_local))
+    return np.array(counts, np.int64)
+
+
+def multihost_state(chunk: ParticleState, mesh, config: SimConfig
+                    ) -> ParticleState:
+    """The distributed state from per-process chunks.
+
+    ``chunk`` is this process's particles, in any order; the union over the
+    processes is the system. Each process pads its chunk to its local
+    shards' slots (the mesh's ``n_local`` × L) and the collective
+    repartition sorts the whole in Morton order and spreads it: bitwise
+    ``distribute_state`` of the chunks concatenated in rank order."""
+    from nbody_simulation_tpu_torch.parallel.repartition import (
+        make_collective_rebalance)
+
+    n_dev = mesh.n_shards
+    counts = process_allgather_counts(int(chunk.n))
+    L = local_layout(int(counts.sum()), n_dev, config)
+    rows = mesh.n_local * L
+    if chunk.n > rows:
+        raise ValueError(
+            f"process chunk ({chunk.n}) exceeds local shard capacity "
+            f"({mesh.n_local} shards x {L} slots); increase shards or "
+            "rebalance chunk sizes")
+
+    def padf(a, fill):
+        a = a.detach().cpu().numpy()
+        out = np.full((rows,) + a.shape[1:], fill, np.float32)
+        out[:chunk.n] = a
+        return torch.as_tensor(out, device=mesh.device)
+
+    state = ParticleState(padf(chunk.pos, PAD_POS), padf(chunk.vel, 0.0),
+                          padf(chunk.mass, 0.0), n_real=n_dev * L,
+                          distributed=True)
+    return make_collective_rebalance(mesh, config)(state)
+
+
+def chunk_bounds(n: int, pid: int, nproc: int) -> tuple[int, int]:
+    """Row range [lo, hi) of process ``pid``'s equal chunk of ``n`` rows:
+    the row split that scenario chunks use."""
+    base, rem = divmod(n, nproc)
+    lo = pid * base + min(pid, rem)
+    return lo, lo + base + (1 if pid < rem else 0)
+
+
+def local_block(x: torch.Tensor, mesh) -> tuple[np.ndarray,
+                                                list[tuple[int, int]]]:
+    """This process's rows of a mesh-local array ``x`` [S·L, …] on the host,
+    and the global [start, stop) row range of each of its shards, in shard
+    order."""
+    rows = x.shape[0] // mesh.n_local
+    spans = [(s * rows, (s + 1) * rows) for s in mesh.shard_ids]
+    return x.detach().cpu().numpy(), spans

@@ -9,6 +9,9 @@ offsetting each shard's local index by ``shard·L`` and taking the
 ``pmax``; the winner's tint is a masked ``psum``, since global indices are
 unique. The frame is pixel for pixel the single-device frame of the
 concatenated arrays (tests/test_torch_ring.py).
+
+``simulate_distributed`` is the plain loop over a distributed run: steps,
+a frame every so many, and the collective rebalance on its cadence.
 """
 
 from __future__ import annotations
@@ -44,3 +47,29 @@ def sharded_render_frame(pos: torch.Tensor, vel: torch.Tensor,
     mine = (glast >= 0) & (glast_l == glast)
     vlast = mesh.psum(torch.where(mine, vlast_l, torch.zeros_like(vlast_l)))
     return colorize_pixels(green, count, vlast, render_size)
+
+
+def simulate_distributed(state, mesh: Mesh, config, steps: int,
+                         snapshot_every: int = 0, on_frame=None,
+                         rebalance_every: int = 0):
+    """Step a distributed ``state`` ``steps`` times in a
+    ``runtime.distributed.DistributedWorld`` (its rebalance cadence and
+    seam stages included), calling ``on_frame(step, rgba numpy)`` with the
+    sharded frame every ``snapshot_every`` steps. For the whole runtime
+    (queue, telemetry, viewer) use ``runtime.distributed.DistributedEngine``.
+    Returns the final state."""
+    from nbody_simulation_tpu_torch.runtime.distributed import (
+        DistributedWorld)
+
+    world = DistributedWorld(state, mesh, config,
+                             rebalance_every=rebalance_every)
+    for i in range(1, steps + 1):
+        world.step()
+        if snapshot_every and on_frame and i % snapshot_every == 0:
+            frame = sharded_render_frame(
+                world.state.pos, world.state.vel, world.state.mass, mesh,
+                world_size=config.world_size,
+                render_size=config.render_size,
+                heavy_weight=config.heavy_weight)
+            on_frame(i, frame.cpu().numpy())
+    return world.state

@@ -9,6 +9,12 @@
 (``nbody_simulation_tpu/state.py``): mass 0 (no force) at ``PAD_POS + i``,
 outside the world so the raster skips them. ``n_real`` is the live count.
 
+A ``distributed`` state (``parallel.bh_distributed.distribute_state``)
+interleaves each shard's padding with the next shard's live rows, so "the
+first ``n_real`` rows are live" does not hold there: zero mass is the only
+live marker, ``real_slice`` refuses it and ``compact`` gathers the live
+rows.
+
 Tensors are never updated in place: every step builds new ones, so a
 reference to an old state stays valid.
 """
@@ -27,14 +33,16 @@ PAD_POS = -1.0e6
 class ParticleState:
     """Particle state: three tensors on one device plus the live count."""
 
-    __slots__ = ("pos", "vel", "mass", "n_real")
+    __slots__ = ("pos", "vel", "mass", "n_real", "distributed")
 
     def __init__(self, pos: torch.Tensor, vel: torch.Tensor,
-                 mass: torch.Tensor, n_real: int | None = None):
+                 mass: torch.Tensor, n_real: int | None = None,
+                 distributed: bool = False):
         self.pos = pos
         self.vel = vel
         self.mass = mass
         self.n_real = int(n_real) if n_real is not None else int(pos.shape[0])
+        self.distributed = bool(distributed)
 
     @classmethod
     def create(cls, pos, vel, mass, n_real: int | None = None,
@@ -60,7 +68,8 @@ class ParticleState:
 
     def to(self, device: str | torch.device) -> "ParticleState":
         return ParticleState(self.pos.to(device), self.vel.to(device),
-                             self.mass.to(device), self.n_real)
+                             self.mass.to(device), self.n_real,
+                             self.distributed)
 
     def pad_to(self, multiple: int) -> "ParticleState":
         """Pad to the next multiple of ``multiple`` with inert particles."""
@@ -84,9 +93,21 @@ class ParticleState:
         )
 
     def real_slice(self) -> "ParticleState":
-        """Drop padding: the first ``n_real`` rows are the live ones."""
+        """Drop padding: the first ``n_real`` rows are the live ones. A
+        distributed layout raises (its padding is interleaved): use
+        ``compact``."""
+        if self.distributed:
+            raise ValueError(
+                "real_slice() on a distributed state would return interleaved"
+                " padding as live rows; use ParticleState.compact() instead")
         k = self.n_real
         return ParticleState(self.pos[:k], self.vel[:k], self.mass[:k], k)
+
+    def compact(self) -> "ParticleState":
+        """The live (mass > 0) rows of any layout, in row order, as a
+        compact state on this state's device."""
+        live = self.mass > 0
+        return ParticleState(self.pos[live], self.vel[live], self.mass[live])
 
     def replace(self, **kw: Any) -> "ParticleState":
         return ParticleState(
@@ -94,11 +115,13 @@ class ParticleState:
             kw.get("vel", self.vel),
             kw.get("mass", self.mass),
             n_real=kw.get("n_real", self.n_real),
+            distributed=kw.get("distributed", self.distributed),
         )
 
     def __repr__(self) -> str:
-        return (f"ParticleState(n={self.n}, n_real={self.n_real}, "
-                f"device={self.device})")
+        return (f"ParticleState(n={self.n}, n_real={self.n_real}"
+                + (", distributed" if self.distributed else "")
+                + f", device={self.device})")
 
 
 def state_from_numpy(pos, vel, mass, n_real: int | None = None,

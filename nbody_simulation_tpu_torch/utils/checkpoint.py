@@ -7,8 +7,10 @@ patterns round-trip). The fields are those of the JAX package's
 ``utils/checkpoint.py`` at ``FORMAT_VERSION`` 1, so each package reads the
 other's files.
 
-The sharded format (``save_sharded_checkpoint``) needs the multi-host
-helpers that are not ported yet (ROADMAP.md item 6).
+A distributed run saves in this format too
+(``runtime.distributed.save_distributed_checkpoint``). The sharded format
+(``save_sharded_checkpoint``, one file per process) is not ported yet
+(ROADMAP.md item 6, the sharded checkpoint and recorder).
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ read back with the codec that wrote it (``CODEC``).
 
 ``playback_sharded`` reads the JAX package's sharded recordings (one
 stream per process plus ``manifest.json``). Writing them
-(``ShardedRecorder``) needs the multi-host helpers that are not ported
-yet (ROADMAP.md item 6).
+(``ShardedRecorder``) is not ported yet (ROADMAP.md item 6, the sharded
+checkpoint and recorder).
 """
 
 from __future__ import annotations

@@ -58,9 +58,12 @@ class EnergyMeter:
     counterpart law (ops/energy.py) and prints the drift relative to the
     first sample, in the JAX package's format. ``method`` is "exact" (the
     O(N²/2) pair sweep, kernel K6 on the card) or "bh" (the O(N·C)
-    Barnes-Hut planned approximation). Samples are kept in ``samples`` as
-    (step, energy). A sharded world (one with a ``mesh``) is not supported
-    yet: ROADMAP.md item 6, multi-device.
+    Barnes-Hut planned approximation). On a world with a ``mesh`` (a
+    ``runtime.distributed.DistributedWorld``) "bh" is
+    ``parallel.bh_distributed_total_energy`` with the world's seam stages,
+    O(N·C/P) per shard, and "exact" the ring of the potential kernel
+    (``parallel.sharded_total_energy``), O(N²/P). Samples are kept in
+    ``samples`` as (step, energy).
     """
 
     def __init__(self, every: int, emit=print, softening2: float = 1e-3,
@@ -81,14 +84,21 @@ class EnergyMeter:
             return
         self._last = step
         if getattr(world, "mesh", None) is not None:
-            raise NotImplementedError(
-                "EnergyMeter on a sharded world is not yet ported (ROADMAP.md "
-                "item 6, multi-device)")
-        from nbody_simulation_tpu_torch.ops.energy import (bh_total_energy,
-                                                           total_energy)
-        if self.method == "bh":
+            from nbody_simulation_tpu_torch.parallel import (
+                bh_distributed_total_energy, sharded_total_energy)
+            if self.method == "bh":
+                e = float(bh_distributed_total_energy(
+                    world.state, world.mesh, world.config,
+                    extra_pairs=getattr(world, "_extra", ()))["total_energy"])
+            else:
+                e = float(sharded_total_energy(
+                    world.state, world.mesh,
+                    softening2=self.softening2)["total_energy"])
+        elif self.method == "bh":
+            from nbody_simulation_tpu_torch.ops.energy import bh_total_energy
             e = float(bh_total_energy(world.state, world.config))
         else:
+            from nbody_simulation_tpu_torch.ops.energy import total_energy
             e = float(total_energy(world.state, softening2=self.softening2))
         if self.e0 is None:
             self.e0 = e

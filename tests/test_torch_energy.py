@@ -113,12 +113,35 @@ def test_energy_meter_samples_match_jax(method):
 
 
 def test_energy_meter_refuses_what_is_not_ported():
+    """An unknown method raises; on a distributed world (one with a
+    ``mesh``) both methods are the JAX meter's mesh branch: "bh" the staged
+    distributed potential with the world's seam stages, "exact" the ring of
+    the potential kernel."""
     with pytest.raises(ValueError):
         EnergyMeter(4, method="ring")
 
-    class ShardedWorld:
-        updates = 0
-        mesh = object()
+    from nbody_simulation_tpu import parallel as jpar
+    from nbody_simulation_tpu.runtime.distributed import (
+        DistributedWorld as JaxDistributedWorld)
+    from nbody_simulation_tpu_torch import parallel as tpar
+    from nbody_simulation_tpu_torch.runtime.distributed import (
+        DistributedWorld as PortDistributedWorld)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-        EnergyMeter(4)(ShardedWorld())
+    kw = dict(force_path="bh", leaf_size=16)
+    jst = juniform(2048, seed=9)
+    jw = JaxDistributedWorld(
+        jpar.distribute_state(jst, jpar.make_1d_mesh(2), JaxConfig(**kw)),
+        jpar.make_1d_mesh(2), JaxConfig(**kw))
+    mesh = tpar.LocalMesh(2, "cpu")
+    tw = PortDistributedWorld(
+        tpar.distribute_state(port_state(jst), mesh, SimConfig(**kw)), mesh,
+        SimConfig(**kw))
+    for method in ("bh", "exact"):
+        jlines, tlines = [], []
+        jm = JaxMeter(4, emit=jlines.append, method=method)
+        tm = EnergyMeter(4, emit=tlines.append, method=method)
+        jm(jw)
+        tm(tw)
+        assert tlines[0].split(" E=")[0] == jlines[0].split(" E=")[0]
+        np.testing.assert_allclose(tm.samples[0][1], jm.samples[0][1],
+                                   rtol=RTOL)

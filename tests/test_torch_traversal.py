@@ -76,6 +76,49 @@ def test_planner_columns_identical_on_the_same_tree(trees, theta, fcap, lcap,
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("theta,fcap,arity,mp,levels", [
+    (50.0, 16, 2, 1, 2),     # the θ=50 near stage's bounded walk
+    (0.7, 16, 4, 2, 2),      # 4-ary, quadrupole (flushes carry no Q)
+    (0.7, 8, 2, 2, 0),       # no level walked: the seed level flushed
+])
+def test_bounded_and_seeded_walks_identical_on_the_same_tree(
+        trees, theta, fcap, arity, mp, levels):
+    """The distributed paths' planner forms on one tree: the bounded walk
+    that flushes at the cut (the forest's), the bounded walk that returns
+    its frontier instead, and the walk seeded with that frontier down to
+    the leaves (a near stage's continuation). Same tree, same integer
+    decisions: frontier, valid and every column bitwise JAX's."""
+    jt, pt = trees
+    j_own, p_own = jt.levels[jt.depth - 1], pt.levels[pt.depth - 1]
+    kw = dict(arity=arity, multipole=mp, max_levels=levels)
+    want = jax.jit(lambda t, o: jtrav.plan_rows(t, o, theta, fcap, 0, **kw))(
+        jt, j_own)
+    got = ttrav.plan_rows(pt, p_own, theta, fcap, 0, **kw)
+    assert len(got) == 3 * mp
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    (jcols, jfr, jva), cut = jax.jit(lambda t, o: jtrav.plan_rows(
+        t, o, theta, fcap, 0, return_frontier=True, **kw))(jt, j_own), \
+        min(jt.depth, min(fcap.bit_length() - 1, jt.depth - 1) + levels)
+    cols, fr, va = ttrav.plan_rows(pt, p_own, theta, fcap, 0,
+                                   return_frontier=True, **kw)
+    np.testing.assert_array_equal(fr.numpy(), np.asarray(jfr))
+    np.testing.assert_array_equal(va.numpy(), np.asarray(jva))
+    for w, g in zip(jcols, cols):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    want = jax.jit(lambda t, o, f, v: jtrav.plan_rows(
+        t, o, theta, fcap, 32, arity=arity, multipole=mp,
+        seed=(cut, f, v)))(jt, j_own, jfr, jva)
+    got = ttrav.plan_rows(pt, p_own, theta, fcap, 32, arity=arity,
+                          multipole=mp, seed=(cut, fr, va))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="seeded frontier"):
+        ttrav.plan_rows(pt, p_own, theta, 2 * fcap, 32, seed=(cut, fr, va))
+
+
 @pytest.mark.parametrize("g,s,c", [(3, 64, 200), (16, 32, 300), (5, 7, 1)])
 def test_grouped_force_ref_matches_jax_sweep(g, s, c):
     rng = np.random.default_rng(g * 100 + s)
