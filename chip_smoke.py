@@ -39,8 +39,13 @@ version at the main paths' shapes:
   and θ=0 ``bh_accel_diff`` gradients against f64 torch autograd of the
   direct sum on a random cloud; both differentiable forwards bitwise the
   run mode's on the galaxy; value+grad of Σ|a|² on the galaxy (Barnes-Hut
-  and all-pairs) and on a 1,048,576-body disc, one of them traced; and the
-  gradient of the galaxy's spread after 4 Euler steps;
+  and all-pairs) and on a 1,048,576-body disc, one of them traced; the
+  Barnes-Hut value+grad bitwise on two calls (output and both gradients);
+  the segmented sum of the planner's gathers' backward
+  (``csrc/segment_sum.cu``) at every shape a galaxy value+grad gives it,
+  against its plain version and bitwise on two calls, timed beside
+  ``index_add_``; and the gradient of the galaxy's spread after 4 Euler
+  steps;
 - the multi-device paths on a ``LocalMesh`` of P shards on the card (one
   card runs the sharded schedule and its kernels; no interconnect): the
   cross-shard symmetric kernel (K9) in all five rcp modes on 4,096 sampled
@@ -65,8 +70,15 @@ version at the main paths' shapes:
   energies (the exact one against a single device), and the distributed
   force against single-device ``bh_accel``; the θ=0.5 Plummer with seam
   matchings against the ring, the ring with full caps against a single
-  device, the gradient at P=4 against ``bh_accel_diff``; and K3, K8 and K4
-  at the near (S=512) and forest (S=2048) rows.
+  device, the gradient at P=4 against ``bh_accel_diff`` and bitwise on two
+  calls; and K3, K8 and K4 at the local (S=256), near (S=512) and forest
+  (S=2048) rows;
+- the distributed CLI (``cli_phase``), ``python -m
+  nbody_simulation_tpu_torch.run_multihost`` in subprocesses: one NCCL
+  rank with the self-check, energies, a sharded recording (held to an
+  in-process run) and a sharded checkpoint; then N=8,388,608 on 8 local
+  shards with a sharded checkpoint, resumed on 4 (the loaded live rows
+  bitwise the files').
 
 Then it drives the main paths through the CLI: the Barnes-Hut galaxy
 (``python -m nbody_simulation_tpu_torch.run`` defaults) for 64 steps, the
@@ -89,7 +101,8 @@ stages' times. Four steps of each
 Barnes-Hut world are traced with torch.profiler (device time and
 operations per step, the sweep kernel's share; a trace without device
 time for the step or the sweep kernel fails; a value+grad trace without
-the K8 kernels fails). Every check that fails
+the K8 kernels fails; a trace's device time counts each device event
+once). Every check that fails
 raises, and the exit code is then nonzero. Progress lines carry the card's
 name and power limit. The last three lines are the kernel table as JSON,
 the card, and ``{"ok": true, "device": {...}}``.
@@ -145,6 +158,10 @@ VIEWER_STREAM_S = 2.0
 N_SAMPLED = 4096
 SMALL_N = (200, 512, 768, 1000, 1280)   # K2 tiles of 256: nt 1, 2, 3, 4, 5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP64_PER_S = 34e12            # H100 SXM data sheet, FP64 (no tensor cores)
+# The segmented sum has no TPU kernel: it is the backward of the planner's
+# gather, which XLA differentiates into a scatter-add.
+SEG_REPLACES = "nbody_simulation_tpu/ops/traversal.py:367"
 FP32_PER_SM_CLK = 128         # FP32 results per SM and clock (67 TFLOP/s FMA)
 MUFU_PER_SM_CLK = 16          # reciprocal / rsqrt results per SM and clock
 
@@ -342,6 +359,35 @@ def dev_us(e) -> float:
             or getattr(e, "self_cuda_time_total", 0))
 
 
+def same_bits(a, b) -> bool:
+    """Whether two f32 tensors hold the same bits (NaN payloads included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def on_device(e) -> bool:
+    """Whether a profiler event ran on the card (a kernel, copy or set)."""
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def device_ms(prof, *names) -> float:
+    """The device time of a torch.profiler trace in ms: each device-side
+    event once, or those whose name holds one of ``names``. An operator's
+    own device time is that of the kernels it launched, so a sum over
+    ``key_averages()`` counts every kernel launched inside an operator
+    twice (``all_entries_ms``)."""
+    return sum(dev_us(e) for e in prof.events() if on_device(e) and (
+        not names or any(n in e.name for n in names))) / 1e3
+
+
+def all_entries_ms(prof) -> float:
+    """The sum of every ``key_averages()`` entry's own device time, which
+    earlier versions of this script reported as the device time: kernels
+    launched inside an operator count twice in it."""
+    return sum(dev_us(e) for e in prof.key_averages()) / 1e3
+
+
 N_DIST = 8_388_608   # the distributed path: P=8 shards of 1,048,576
 DIST_P = 8
 DIST_STEPS = 16
@@ -383,7 +429,8 @@ def distributed_phase(h):
     counted = {"K3": (gs, "launches"), "K4": (gs, "quad_launches"),
                "K6": (en.potential_cuda, "launches"),
                "K8a": (tgr.grouped_bwd_tgt_cuda, "launches"),
-               "K8b": (tgr.grouped_bwd_src_cuda, "launches")}
+               "K8b": (tgr.grouped_bwd_src_cuda, "launches"),
+               "SEG": (traversal.segment_sum_cuda, "launches")}
 
     def zero_counts():
         for fn, attr in counted.values():
@@ -482,16 +529,14 @@ def distributed_phase(h):
             world.step()
             torch.cuda.synchronize()
         traced = stage_report()
-        events = prof.key_averages()
-        dev_ms = sum(h.dev_us(e) for e in events) / 1e3
-        k3_ms = sum(h.dev_us(e) for e in events
-                    if "grouped_sweep_kernel" in e.key) / 1e3
-        n_ops = sum(1 for e in prof.events()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        dev_ms = device_ms(prof)
+        k3_ms = device_ms(prof, "grouped_sweep_kernel")
+        n_ops = sum(1 for e in prof.events() if on_device(e))
         if dev_ms <= 0 or k3_ms <= 0:
             raise RuntimeError("distributed BH trace recorded no device time")
         log(f"distributed BH traced step: device time {dev_ms:.3f} ms in "
-            f"{n_ops} device operations, K3 {k3_ms:.3f} ms "
+            f"{n_ops} device operations (summed over every profiler entry: "
+            f"{all_entries_ms(prof):.3f} ms), K3 {k3_ms:.3f} ms "
             f"({k3_ms / dev_ms:.0%}); K3 launches per stage "
             + ", ".join(f"{s} {r['K3']}" for s, r in traced.items()))
 
@@ -720,6 +765,20 @@ def distributed_phase(h):
             if not torch.equal(a.detach(), run):
                 raise RuntimeError(f"theta={theta}: bh_distributed_accel_diff "
                                    "differs from bh_distributed_accel")
+            # A second call on the same inputs: output and both gradients
+            # bitwise (the gathers' backward adds in a fixed order).
+            p2 = gds.pos.clone().requires_grad_(True)
+            m2 = gds.mass.clone().requires_grad_(True)
+            a2 = par.bh_distributed_accel_diff(p2, m2, mesh4, config=gcfg)
+            twice = [same_bits(x, y) for x, y in zip(
+                (a.detach(), gp, gm),
+                (a2.detach(), *torch.autograd.grad((a2 * cot).sum(),
+                                                   (p2, m2))))]
+            del p2, m2, a2
+            if not all(twice):
+                raise RuntimeError(f"theta={theta}: bh_distributed_accel_diff "
+                                   f"differs between two calls (output, "
+                                   f"positions, masses): {twice}")
             p1 = gds.pos.clone().requires_grad_(True)
             m1 = gds.mass.clone().requires_grad_(True)
             a1 = tgr.bh_accel_diff(p1, m1, theta=theta, frontier_cap=fcap_g,
@@ -729,10 +788,10 @@ def distributed_phase(h):
             gp1, gm1 = torch.autograd.grad((a1 * cot).sum(), (p1, m1))
             # Positions: the JAX test's bounds. Masses: rtol 2e-4 and an
             # atol of 1e-6 of the largest |g_m|. Each g_m is a sum of
-            # terms of random sign (a random cotangent) that autograd's
-            # atomics add in no fixed order, so entries that cancel to near
-            # 0 carry ~1e-7 of the terms' scale; the JAX test's atol of
-            # 1e-8 is sized for its unit-mass disc.
+            # terms of random sign (a random cotangent) that the two walks
+            # add in different orders, so entries that cancel to near 0
+            # carry ~1e-7 of the terms' scale; the JAX test's atol of 1e-8
+            # is sized for its unit-mass disc.
             m_atol = 1e-6 * gm1.abs().max().item()
             ok = (torch.allclose(a.detach(), a1.detach(), rtol=2e-4,
                                  atol=1e-6)
@@ -745,7 +804,8 @@ def distributed_phase(h):
             rel_p = ((gp - gp1).norm() / gp1.norm()).item()
             log(f"bh_distributed_accel_diff theta={theta} P=4 (galaxy, "
                 f"{N_DIST_GRAD} rows, caps F={fcap_g} L={lcap_g}): forward "
-                f"bitwise bh_distributed_accel; gradient of sum(a*cot) vs "
+                f"bitwise bh_distributed_accel; output and both gradients "
+                f"bitwise on two calls; gradient of sum(a*cot) vs "
                 f"single-device bh_accel_diff: pos {dp:.3f} of the allowed "
                 f"(rtol 2e-4, atol 1e-6), relative norm {rel_p:.3e}; mass "
                 f"{dm:.3f} of the allowed (rtol 2e-4, atol {m_atol:.3e}), "
@@ -766,7 +826,7 @@ def distributed_phase(h):
     kernel_rows = {}
     for stage, (tgt, cols, rcp) in sorted(first.items()):
         g, s, _ = tgt.shape
-        if s not in (512, 2048):
+        if s not in (256, 512, 2048):
             continue
         label = f"{stage} rows (G={g}, S={s}, C={cols[0].shape[1]})"
         lim = traversal.last_nonzero_columns(cols[2])
@@ -820,6 +880,182 @@ def distributed_phase(h):
     return launches, kernel_rows
 
 
+N_CLI_RANK = 262_144   # the CLI as one NCCL rank
+CLI_STEPS = 8
+CLI_RESUME_STEPS = 4
+
+
+def cli_phase(h):
+    """The distributed CLI, ``python -m nbody_simulation_tpu_torch.
+    run_multihost``, in subprocesses (a process group stays in its
+    process): one NCCL rank on the card with the self-check, Barnes-Hut
+    energies, a sharded recording and a sharded checkpoint, its recording
+    held to an in-process run; then the distributed main path's size on 8
+    local shards with a sharded checkpoint, resumed on 4. Each run prints
+    its kernel launches, counted from 0 in its own process. Returns the
+    phase's numbers."""
+    import numpy as np
+    import torch
+
+    from nbody_simulation_tpu_torch import parallel as par
+    from nbody_simulation_tpu_torch.config import SimConfig
+    from nbody_simulation_tpu_torch.models.scenarios import scenario_chunk
+    from nbody_simulation_tpu_torch.parallel.multihost import multihost_state
+    from nbody_simulation_tpu_torch.runtime.distributed import (
+        DistributedWorld)
+    from nbody_simulation_tpu_torch.utils.checkpoint import (
+        load_sharded_checkpoint)
+    from nbody_simulation_tpu_torch.utils.recording import playback_sharded
+
+    log, dev = h.log, h.dev
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                        "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(root)
+
+    def cli(label, *args):
+        """Run the CLI; return (its stdout's lines that start with a prefix,
+        as a function of the prefix; its wall seconds)."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nbody_simulation_tpu_torch.run_multihost",
+             *args], cwd=root, env=env, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"run_multihost ({label}) exited "
+                               f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+
+        def found(prefix):
+            got = [ln for ln in lines if ln.startswith(prefix)]
+            if not got:
+                raise RuntimeError(f"run_multihost ({label}): no {prefix!r} "
+                                   f"line in\n{proc.stdout[-3000:]}")
+            return got
+        return found, wall
+
+    def num(text, before):
+        return float(re.search(re.escape(before) + r"\s*([-+0-9.eEinfa]+)",
+                               text).group(1))
+
+    cfg = SimConfig(force_path="bh", theta=50.0)
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="nbody_cli_"))
+    try:
+        # -- one NCCL rank: the CLI's default on one card
+        rec, d1 = tmp / "rec", tmp / "d1"
+        found, wall = cli(
+            "one NCCL rank", "--scenario", "uniform", "--n", str(N_CLI_RANK),
+            "--steps", str(CLI_STEPS), "--selfcheck", "--energy-every", "4",
+            "--energy-method", "bh", "--record", str(rec), "--record-every",
+            "2", "--snapshot-every", "2", "--checkpoint-sharded", str(d1))
+        head, done = found("processes:")[-1], found("done:")[-1]
+        launches = json.loads(found("launches:")[-1].split(":", 1)[1])
+        energies = found("energy:")
+        if (not head.startswith("processes: 1, shards: 1 (1 local) on cuda")
+                or found("len:")[-1] != f"len: {N_CLI_RANK}"
+                or not done.startswith(f"done: {CLI_STEPS} steps")
+                or len(energies) != 2 or not launches.get("K3")):
+            raise RuntimeError(f"run_multihost as one NCCL rank: {head}; "
+                               f"{done}; {energies}; launches {launches}")
+        sc = found("selfcheck:")[-1]
+        out["rank"] = {"steps_per_s": num(done, "s ("), "wall_s": wall,
+                       "selfcheck_median": num(sc, "median="),
+                       "selfcheck_p99": num(sc, "p99="),
+                       "launches": launches}
+        log(f"run_multihost, one NCCL rank (ProcessGroupMesh, "
+            f"uniform N={N_CLI_RANK}, {CLI_STEPS} steps): {sc}; "
+            f"{len(energies)} Barnes-Hut energies ({energies[-1]}); {done}; "
+            f"{found('recording:')[-1]}; "
+            f"{found('sharded checkpoint:')[-1]}; launches {launches}; "
+            f"{wall:.1f} s with start-up")
+        # Its recording against the same run in this process on a
+        # LocalMesh(1): the first frame bitwise, later ones within 0.1
+        # (each delta add rounds once in f32).
+        frames = list(playback_sharded(rec))
+        mesh1 = par.LocalMesh(1, dev)
+        w = DistributedWorld(multihost_state(scenario_chunk(
+            "uniform", 0, 1, seed=0, n=N_CLI_RANK), mesh1, cfg), mesh1, cfg,
+            rebalance_every=1000)
+        worst = 0.0
+        for k, (step, frame) in enumerate(frames):
+            w.run(step - w.updates)
+            want = w.state.pos.cpu().numpy()
+            if k == 0 and not np.array_equal(frame.view(np.uint32),
+                                             want.view(np.uint32)):
+                raise RuntimeError(f"run_multihost recording: frame at "
+                                   f"step {step} differs from the run")
+            worst = max(worst, float(np.abs(frame - want).max()))
+        steps = [s for s, _ in frames]
+        if steps != list(range(2, CLI_STEPS + 1, 2)) or not worst <= 0.1:
+            raise RuntimeError(f"run_multihost recording: steps {steps}, "
+                               f"worst {worst}")
+        log(f"run_multihost recording: frames at steps {steps}, the first "
+            f"bitwise a LocalMesh(1) run's positions, the rest within "
+            f"{worst:.3e} (bound 0.1)")
+        del w, frames
+
+        # -- the distributed main path's size on 8 local shards, saved and
+        # resumed on 4
+        d2 = tmp / "d2"
+        found, wall = cli(
+            "8 local shards", "--scenario", "uniform", "--n", str(N_DIST),
+            "--steps", str(DIST_STEPS), "--rebalance-every",
+            str(DIST_REBALANCE), "--local-shards", str(DIST_P),
+            "--checkpoint-sharded", str(d2))
+        done, saved = found("done:")[-1], found("sharded checkpoint:")[-1]
+        launches = json.loads(found("launches:")[-1].split(":", 1)[1])
+        nbytes = sum(f.stat().st_size for f in d2.iterdir())
+        if (found("len:")[-1] != f"len: {N_DIST}" or not launches.get("K3")
+                or not done.startswith(f"done: {DIST_STEPS} steps")):
+            raise RuntimeError(f"run_multihost on {DIST_P} local shards: "
+                               f"{done}; launches {launches}")
+        out["local"] = {"steps_per_s": num(done, "s ("), "wall_s": wall,
+                        "save_ms": num(saved, " in"), "bytes": nbytes,
+                        "launches": launches}
+        log(f"run_multihost --local-shards {DIST_P} (uniform N={N_DIST}, "
+            f"{DIST_STEPS} steps, rebalance every {DIST_REBALANCE}): {done}; "
+            f"{saved}, {nbytes} bytes in {len(list(d2.iterdir()))} files; "
+            f"launches {launches}; {wall:.1f} s with start-up")
+        mass2 = num(done, ", mass")
+        found, wall = cli(
+            "resume on 4 local shards", "--resume-sharded", str(d2),
+            "--local-shards", "4", "--steps", str(CLI_RESUME_STEPS))
+        done, resumed = found("done:")[-1], found("resumed:")[-1]
+        ke = num(done, ", ke")
+        if (found("len:")[-1] != f"len: {N_DIST}"
+                or not done.startswith(f"done: {CLI_RESUME_STEPS} steps")
+                or not math.isfinite(ke) or num(done, ", mass") != mass2):
+            raise RuntimeError(f"run_multihost resume: {done}")
+        out["resume"] = {"steps_per_s": num(done, "s ("), "wall_s": wall,
+                         "load_ms": num(resumed, " in")}
+        log(f"run_multihost --resume-sharded on 4 local shards: {resumed}; "
+            f"{done}; {wall:.1f} s with start-up")
+        # The resumed layout's live rows are the files' rows, bitwise.
+        state, step = load_sharded_checkpoint(d2, par.LocalMesh(4, dev), cfg)
+        live = state.compact()
+        with np.load(d2 / "shard_00000.npz") as z:
+            same = [np.array_equal(z[k].view(np.uint32), getattr(
+                live, k).cpu().numpy().view(np.uint32))
+                for k in ("pos", "vel", "mass")]
+        if step != DIST_STEPS or not all(same):
+            raise RuntimeError(f"sharded checkpoint load: step {step}, live "
+                               f"rows (pos, vel, mass) bitwise {same}")
+        log(f"load_sharded_checkpoint onto LocalMesh(4): step {step}, the "
+            f"{live.n} live rows bitwise the file's")
+        del state, live
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase distributed CLI: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -868,7 +1104,8 @@ def main() -> int:
     if banned:
         raise RuntimeError(f"JAX or the JAX package was imported: {banned}")
     loaders = {"grouped_sweep": traversal._load_sweep_lib,
-               "allpairs": ap._load_lib, "force_grad": agr._load_lib}
+               "allpairs": ap._load_lib, "force_grad": agr._load_lib,
+               "segment_sum": traversal._load_segment_lib}
 
     def build(name):
         t = time.perf_counter()
@@ -1010,22 +1247,20 @@ def main() -> int:
                                  ProfilerActivity.CUDA]) as prof:
             world.run(steps)
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        total = sum(dev_us(e) for e in events) / steps / 1e3
-        sweep = sum(dev_us(e) for e in events
-                    if "grouped_sweep_kernel" in e.key
-                    or "quad_sweep_kernel" in e.key) / steps / 1e3
-        fold = sum(dev_us(e) for e in events
-                   if "quad_fold" in e.key) / steps / 1e3
-        ops = sum(1 for e in prof.events()
-                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        total = device_ms(prof) / steps
+        sweep = device_ms(prof, "grouped_sweep_kernel",
+                          "quad_sweep_kernel") / steps
+        fold = device_ms(prof, "quad_fold") / steps
+        ops = sum(1 for e in prof.events() if on_device(e))
         if total <= 0 or sweep <= 0:
             raise RuntimeError(f"{label} trace: device time {total} ms, sweep "
                                f"kernel {sweep} ms per step: the profiler "
                                "recorded no device time for the step or the "
                                "sweep kernel")
         log(f"{label} trace ({steps} steps): device time {total:.3f} ms per "
-            f"step in {ops / steps:.0f} device operations; sweep kernel "
+            f"step in {ops / steps:.0f} device operations (summed over every "
+            f"profiler entry: {all_entries_ms(prof) / steps:.3f} ms); sweep "
+            f"kernel "
             f"{sweep:.3f} ms ({sweep / total:.0%})"
             + (f" and K4's fold {fold:.3f} ms" if fold else "")
             + f", the rest (sort, tree, planner, integration) "
@@ -1391,13 +1626,14 @@ def main() -> int:
     helpers = types.SimpleNamespace(
         log=log, dev=dev, hold=hold, hold_mono=hold_mono, hold_quad=hold_quad,
         hold_k8=hold_k8, timed_ms=timed_ms, plain_timed=plain_timed,
-        bound=bound, dev_us=dev_us, softening2=SOFTENING2,
+        bound=bound, softening2=SOFTENING2,
         rcp_modes=RCP_MODES)
     if "--only-distributed" in sys.argv[1:]:
         # A developer's run of the distributed phase alone (after the
         # monopole sweep's); no result line.
         launches, rows = distributed_phase(helpers)
         log(f"distributed BH launches per kernel: {json.dumps(launches)}")
+        cli_phase(helpers)
         return 0
 
     # The 65,536-body Plummer cluster at θ=0.5 with mass-weighted leaf COMs:
@@ -1996,16 +2232,21 @@ def main() -> int:
     counted = {"K3": traversal.grouped_sweep, "K1": ap.allpairs_cuda,
                "K2": ap.allpairs_sym_cuda, "K7a": agr.bwd_i_cuda,
                "K7b": agr.bwd_j_cuda, "K8a": tgr.grouped_bwd_tgt_cuda,
-               "K8b": tgr.grouped_bwd_src_cuda}
+               "K8b": tgr.grouped_bwd_src_cuda,
+               "SEG": traversal.segment_sum_cuda}
 
     def one_call(label, fn, pos, mass, expect):
+        """``expect``: launches per kernel, None for "at least one"."""
         for k in counted.values():
             k.launches = 0
         loss, grad = value_grad(fn, pos, mass)
         torch.cuda.synchronize()
         got = {k: v.launches for k, v in counted.items() if v.launches}
         log(f"{label} value+grad: loss {loss.item():.6e}, launches {got}")
-        if got != expect or not bool(torch.isfinite(grad).all()):
+        if (set(got) != set(expect)
+                or any(n is not None and got[k] != n
+                       for k, n in expect.items())
+                or not bool(torch.isfinite(grad).all())):
             raise RuntimeError(f"{label} value+grad: launches {got} (want "
                                f"{expect}), finite grad "
                                f"{bool(torch.isfinite(grad).all())}")
@@ -2015,18 +2256,96 @@ def main() -> int:
     vg_ms, vg_launches = {}, {}
     for label, fn, pos, mass, expect, reps in (
             ("BH galaxy theta=50", tgr.bh_accel_diff, gal0.pos, gal0.mass,
-             {"K3": 1, "K8a": 1, "K8b": 1}, 5),
+             {"K3": 1, "K8a": 1, "K8b": 1, "SEG": None}, 5),
             ("all-pairs galaxy (padded)",
              lambda p, m: agr.allpairs_accel_diff(p, m, SOFTENING2),
              gpos, gmass, {"K1": 1, "K7a": 1, "K7b": 1}, 3),
             (f"BH disc N={N_BIG} theta=50", tgr.bh_accel_diff, disc.pos,
-             disc.mass, {"K3": 1, "K8a": 1, "K8b": 1}, 3)):
+             disc.mass, {"K3": 1, "K8a": 1, "K8b": 1, "SEG": None}, 3)):
         vg_launches[label] = one_call(label, fn, pos, mass, expect)
         vg_ms[label] = timed_ms(lambda: value_grad(fn, pos, mass), reps=reps)
         fwd_ms = timed_ms(lambda: fn(pos, mass), reps=reps)
         log(f"{label}: value+grad {vg_ms[label]:.3f} ms, the forward alone "
             f"{fwd_ms:.3f} ms (CUDA events after warm-up, {reps} calls)")
     del disc
+
+    # The Barnes-Hut value+grad is bitwise on two calls: the output and both
+    # gradients. The planner's gathers add each row's duplicates in a fixed
+    # order (ops/traversal.py, index_add_ordered), where index_select's own
+    # backward added them with float atomics.
+    def bh_value_grads(pos, mass):
+        p = pos.detach().requires_grad_(True)
+        m = mass.detach().requires_grad_(True)
+        a = tgr.bh_accel_diff(p, m)
+        return (a.detach(), *torch.autograd.grad((a * a).sum(), (p, m)))
+
+    twice = [same_bits(x, y) for x, y in zip(
+        bh_value_grads(gal0.pos, gal0.mass),
+        bh_value_grads(gal0.pos, gal0.mass))]
+    log(f"BH galaxy value+grad twice on the same inputs: output, position "
+        f"gradient, mass gradient bitwise {twice}")
+    if not all(twice):
+        raise RuntimeError(f"BH galaxy value+grad differs between two calls "
+                           f"(output, positions, masses): {twice}")
+
+    # The segmented sum (csrc/segment_sum.cu) at the shapes one galaxy
+    # value+grad gives it, against its plain version (each run added in
+    # f64, rounded once: within 1e-6 of the run's Σ|x|), two calls bitwise.
+    seg_calls = []
+    real_iao = traversal.index_add_ordered
+
+    def capture_iao(n_rows, idx, src):
+        seg_calls.append((n_rows, idx, src))
+        return real_iao(n_rows, idx, src)
+
+    traversal.index_add_ordered = capture_iao
+    try:
+        value_grad(tgr.bh_accel_diff, gal0.pos, gal0.mass)
+    finally:
+        traversal.index_add_ordered = real_iao
+    seg_err, seg_big = 0.0, None
+    for n_rows, idx, src in seg_calls:
+        flat = src.reshape(src.shape[0], -1).contiguous()
+        perm, edges = traversal._sorted_segments(idx, n_rows)
+        got = traversal.segment_sum_cuda(flat, perm, edges)
+        again = traversal.segment_sum_cuda(flat, perm, edges)
+        want = traversal.segment_sum_ref(flat, perm, edges)
+        scale = traversal.segment_sum_ref(flat.abs(), perm, edges).double()
+        err = ((got.double() - want.double()).abs()
+               / scale.clamp_min(1e-30)).max().item()
+        seg_err = max(seg_err, (got - want).abs().max().item())
+        if not (torch.equal(got, again) and err <= 1e-6):
+            raise RuntimeError(f"segment_sum at K={flat.shape[0]}, W="
+                               f"{flat.shape[1]}, rows={n_rows}: {err} of "
+                               "sum|x| from the plain version, or two calls "
+                               "differ")
+        if seg_big is None or flat.numel() > seg_big[2].numel():
+            seg_big = (n_rows, idx, flat, perm, edges)
+    n_rows, idx, flat, perm, edges = seg_big
+    k_, w_ = flat.shape
+    ms_seg = timed_ms(lambda: traversal.segment_sum_cuda(flat, perm, edges),
+                      reps=20)
+    _, ms_seg_plain = plain_timed(lambda: traversal.segment_sum_ref(
+        flat, perm, edges))
+    ms_seg_lib = timed_ms(lambda: torch.zeros(
+        (n_rows, w_), device=dev).index_add_(0, idx, flat), reps=20)
+    seg_bytes = 4.0 * k_ * w_ + 8.0 * k_ + 8.0 * (n_rows + 1) \
+        + 4.0 * n_rows * w_
+    t_bytes = seg_bytes / HBM_BYTES_PER_S
+    t_adds = float(k_) * w_ / FP64_PER_S
+    seg_bound = (max(t_bytes, t_adds) * 1e3,
+                 "bytes" if t_bytes >= t_adds else "operations",
+                 f"{seg_bytes:.4e} bytes over {HBM_BYTES_PER_S:.3e} B/s "
+                 f"{t_bytes * 1e3:.4f} ms, {k_ * w_:.4e} f64 adds over "
+                 f"{FP64_PER_S:.1e} op/s {t_adds * 1e3:.4f} ms")
+    log(f"segment_sum: {len(seg_calls)} gathers in one galaxy value+grad, "
+        f"every one within 1e-6 of sum|x| of the plain version (max |d| "
+        f"{seg_err:.3e}) and bitwise on two calls; the largest (K={k_}, "
+        f"W={w_}, {n_rows} rows, longest run "
+        f"{int((edges[1:] - edges[:-1]).max())}): kernel {ms_seg:.4f} ms, "
+        f"plain {ms_seg_plain:.3f} ms (once), index_add_ {ms_seg_lib:.4f} "
+        f"ms, bound {seg_bound[0]:.4f} ms by {seg_bound[1]} ({seg_bound[2]})")
+    del seg_calls, seg_big, flat, perm, edges, idx
 
     # One traced BH value+grad on the galaxy: device time, operations, and
     # K8's share.
@@ -2038,20 +2357,23 @@ def main() -> int:
         value_grad(tgr.bh_accel_diff, gal0.pos, gal0.mass)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    total = sum(dev_us(e) for e in events) / 1e3
-    k8_ms = sum(dev_us(e) for e in events if "grouped_bwd" in e.key) / 1e3
-    k3_ms = sum(dev_us(e) for e in events
-                if "grouped_sweep_kernel" in e.key) / 1e3
-    n_ops = sum(1 for e in prof.events()
-                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    total = device_ms(prof)
+    k8_ms = device_ms(prof, "grouped_bwd")
+    k3_ms = device_ms(prof, "grouped_sweep_kernel")
+    seg_trace_ms = device_ms(prof, "segment_pieces", "segment_fold")
+    n_ops = sum(1 for e in prof.events() if on_device(e))
     if total <= 0 or k8_ms <= 0:
         raise RuntimeError(f"BH value+grad trace: device time {total} ms, "
                            f"K8 {k8_ms} ms: no K8 kernel in the trace")
-    top = sorted(events, key=dev_us, reverse=True)[:4]
+    top = sorted((e for e in events if on_device(e)), key=dev_us,
+                 reverse=True)[:4]
     log(f"BH galaxy value+grad trace: device time {total:.3f} ms in {n_ops} "
-        f"device operations; K8 {k8_ms:.3f} ms ({k8_ms / total:.0%}), K3 "
-        f"{k3_ms:.3f} ms, the rest (sort, tree, planner, their backward) "
-        f"{total - k8_ms - k3_ms:.3f} ms; the most device time: "
+        f"device operations (summed over every profiler entry: "
+        f"{all_entries_ms(prof):.3f} ms); K8 {k8_ms:.3f} ms "
+        f"({k8_ms / total:.0%}), K3 {k3_ms:.3f} ms, segment_sum "
+        f"{seg_trace_ms:.3f} ms, the rest (sort, tree, planner, their "
+        f"backward) {total - k8_ms - k3_ms - seg_trace_ms:.3f} ms; the most "
+        "device time: "
         + "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in top))
 
@@ -2072,7 +2394,8 @@ def main() -> int:
     log(f"trajectory gradient (4 Euler steps of the galaxy): spread "
         f"{spread.item():.6e}, |grad| {g0.norm().item():.6e}, finite "
         f"{bool(torch.isfinite(g0).all())}, launches {traj}")
-    if (traj != {"K3": 4, "K8a": 4, "K8b": 4}
+    seg_per_call = vg_launches["BH galaxy theta=50"]["SEG"]
+    if (traj != {"K3": 4, "K8a": 4, "K8b": 4, "SEG": 4 * seg_per_call}
             or not bool(torch.isfinite(g0).all())):
         raise RuntimeError(f"trajectory gradient: launches {traj}")
     del p0, p, v, g0, gp, pp
@@ -2311,13 +2634,9 @@ def main() -> int:
         for _ in range(2):
             step3(st3)
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev_total = sum(dev_us(e) for e in events) / 2e3
-    rounds = sum(dev_us(e) for e in events
-                 if "allpairs_sym_rounds" in e.key or "sym_fold" in e.key
-                 ) / 2e3
-    n_ops = sum(1 for e in prof.events()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")) / 2
+    dev_total = device_ms(prof) / 2
+    rounds = device_ms(prof, "allpairs_sym_rounds", "sym_fold") / 2
+    n_ops = sum(1 for e in prof.events() if on_device(e)) / 2
     if dev_total <= 0 or rounds <= 0:
         raise RuntimeError("P=3 step trace recorded no device time")
     log(f"P=3 step trace (2 steps): device time {dev_total:.3f} ms per step "
@@ -2510,10 +2829,6 @@ def main() -> int:
             w = run.simulate([*args, "--device", "cuda"])
         torch.cuda.synchronize()
         return w, buf.getvalue(), traversal.grouped_sweep.launches
-
-    def same_bits(a, b) -> bool:
-        return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                                  b.view(torch.int32))
 
     every = cfg.resort_every
     if APP_STEPS % every == 0:
@@ -2775,6 +3090,9 @@ def main() -> int:
         log(f"{name}: max |d| {err:.3e}, kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]}")
 
+    # -- 13. the distributed CLI ----------------------------------------------
+    cli_numbers = cli_phase(helpers)
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bd):
         return {"name": name, "route": "cuda",
                 "source": f"nbody_simulation_tpu_torch/csrc/{source}",
@@ -2815,10 +3133,14 @@ def main() -> int:
         entry("allpairs_sym_pair", "allpairs.cu",
               "nbody_simulation_tpu/ops/allpairs.py:441", p3_counts["K9"],
               k9_err[main_ap], ms_k9, ms_k9_plain, k9_bound),
+        dict(entry("segment_sum", "segment_sum.cu", SEG_REPLACES,
+                   traj["SEG"], seg_err, ms_seg, ms_seg_plain, seg_bound),
+             library_ms=ms_seg_lib),
     ]}
     log(f"chip_smoke: every check passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"distributed BH launches per kernel: {json.dumps(dist_launches)}")
+    log(f"distributed CLI: {json.dumps(cli_numbers)}")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

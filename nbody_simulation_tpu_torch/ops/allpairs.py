@@ -50,6 +50,18 @@ from nbody_simulation_tpu_torch.ops.force import (FLT_MAX, FLT_MIN_NORMAL,
 # near this many elements (the galaxy's full N² would be 92 GB each).
 _CHUNK_ELEMS = 1 << 25
 
+# Operations per pairwise interaction, the fp32 divide counted as one, as
+# the JAX package counts them for its rates.
+FLOPS_PER_PAIR = 22
+
+# The floor of the L1 norm in the "+clamp" modes, which exist only in the
+# kernels: ``csrc/pair_law.cuh`` kL1Clamp holds this value
+# (tests/test_torch_port_basics.py reads it there). A representable pair
+# separation is 0 or ≳ 1e-19, so the clamp is the identity on every
+# normal pair, and the clamped denominator stays ≥ 1e-12·softening2, whose
+# reciprocal times the largest reference mass is finite in f32.
+L1_CLAMP = 1e-12
+
 
 def mono_tile(dx: torch.Tensor, dy: torch.Tensor, mj: torch.Tensor,
               softening2: float = 1e-3, rcp: str = "exact"):

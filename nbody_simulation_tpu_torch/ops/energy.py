@@ -29,6 +29,10 @@ from nbody_simulation_tpu_torch.ops.allpairs import (_load_lib,
                                                      pair_sums)
 from nbody_simulation_tpu_torch.ops.force import FLT_MAX, FLT_MIN_NORMAL
 
+# Operations per pair of the potential sweep (root, mask, multiply-add), as
+# the JAX package counts them for its rates.
+POT_FLOPS_PER_PAIR = 10
+
 
 def pot_tile(dx: torch.Tensor, dy: torch.Tensor, mj: torch.Tensor,
              softening2: float = 1e-3) -> torch.Tensor:

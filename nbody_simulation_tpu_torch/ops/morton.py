@@ -58,6 +58,14 @@ def morton_keys(pos: torch.Tensor, mass: torch.Tensor, world_size: float,
     return torch.where(pad, pad_key, hi), lo
 
 
+
+def morton_encode(pos: torch.Tensor, mass: torch.Tensor, world_size: float,
+                  bits: int = MORTON_BITS) -> torch.Tensor:
+    """One int32 Morton key per particle: the high word of ``morton_keys``
+    (the whole key for ``bits <= 15``)."""
+    return morton_keys(pos, mass, world_size, bits)[0]
+
+
 def morton_order(pos: torch.Tensor, mass: torch.Tensor, world_size: float,
                  bits: int = MORTON_BITS) -> torch.Tensor:
     """Stable permutation that sorts particles in Z-order, padding last.

@@ -42,6 +42,20 @@ from nbody_simulation_tpu_torch.ops.force import (FLT_MAX, FLT_MIN_NORMAL,
                                                   pair_accel)
 from nbody_simulation_tpu_torch.ops.tree import BIG, FlatTree, build_tree
 
+
+def accept_node_scalar(p, nmin, nmax, com, theta):
+    """The reference's per-particle acceptance of a node (reference
+    src/main.rs:370-373), kept for tests: accept iff the node does not
+    contain ``p`` and max(w, h)² < d²(p, com)·θ². Works on tensors of any
+    matching leading shape (the last axis holds x, y)."""
+    contains = ((p[..., 1] > nmin[..., 1]) & (p[..., 0] > nmin[..., 0])
+                & (p[..., 0] < nmax[..., 0]) & (p[..., 1] < nmax[..., 1]))
+    size = nmax - nmin
+    s2 = torch.maximum(size[..., 0], size[..., 1]) ** 2
+    d2 = (p[..., 0] - com[..., 0]) ** 2 + (p[..., 1] - com[..., 1]) ** 2
+    return ~contains & (s2 < d2 * theta * theta)
+
+
 def _group_node_d2(gmin, gmax, nmin, nmax, ncom):
     """Min squared distance from the group AABB to the node COM; plus the
     strict-disjoint flag and node size²."""
@@ -56,16 +70,144 @@ def _group_node_d2(gmin, gmax, nmin, nmax, ncom):
     return disjoint, s2, dx * dx + dy * dy
 
 
+def _sorted_segments(idx: torch.Tensor, n_rows: int):
+    """(perm, edges): a stable sort of ``idx`` and the bounds of each of
+    the ``n_rows`` rows' runs in it, ``edges`` i64 (n_rows + 1)."""
+    key, perm = torch.sort(idx, stable=True)
+    edges = torch.searchsorted(key, torch.arange(
+        n_rows + 1, dtype=key.dtype, device=key.device))
+    return perm, edges
+
+
+def segment_sum_ref(src: torch.Tensor, perm: torch.Tensor,
+                    edges: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``segment_sum_cuda``: row r of the result is
+    the sum of ``src[perm[edges[r]:edges[r+1]]]``, each run added one term
+    after another in f64 and rounded once."""
+    flat = src.reshape(src.shape[0], -1).index_select(0, perm).double()
+    return torch.segment_reduce(flat, "sum", lengths=edges[1:] - edges[:-1],
+                                axis=0, unsafe=True).float()
+
+
+_segment_lib = None
+
+# Entries per piece of a run in ``segment_sum_cuda``: a multiple of the
+# kernel's 8 warps, each adding a stretch of piece/8 entries.
+SEG_PIECE = 256
+
+
+def _load_segment_lib():
+    global _segment_lib
+    if _segment_lib is None:
+        from nbody_simulation_tpu_torch.cuda_build import load_cuda_library
+        lib = load_cuda_library("segment_sum")
+        lib.segment_sum_launch.restype = ctypes.c_int
+        lib.segment_sum_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        _segment_lib = lib
+    return _segment_lib
+
+
+def segment_sum_cuda(src: torch.Tensor, perm: torch.Tensor,
+                     edges: torch.Tensor) -> torch.Tensor:
+    """Launch the fixed-order segmented sum (``csrc/segment_sum.cu``): f32
+    (n_rows, W) from ``src`` f32 (K, W), ``perm`` i64 (K,) and ``edges``
+    i64 (n_rows + 1,), all contiguous on one CUDA device; anything else
+    raises. Each row's run is cut into pieces of ``SEG_PIECE`` entries
+    across the grid, each piece added in a fixed order in f64 into a slot,
+    then a fold adds each row's slots in piece order.
+    ``segment_sum_cuda.launches`` counts the calls."""
+    if src.device.type != "cuda":
+        raise ValueError(f"segment_sum_cuda needs CUDA tensors, got "
+                         f"{src.device}")
+    if src.ndim != 2 or src.dtype != torch.float32:
+        raise ValueError(f"src must be f32 (K, W), got {src.dtype} "
+                         f"{tuple(src.shape)}")
+    k, w = src.shape
+    n_rows = edges.shape[0] - 1
+    for t, shape in ((perm, (k,)), (edges, (n_rows + 1,))):
+        if t.dtype != torch.int64 or tuple(t.shape) != shape:
+            raise ValueError(f"perm and edges must be int64 {(k,)} and "
+                             f"(n_rows + 1,), got {t.dtype} {tuple(t.shape)}")
+    for t in (src, perm, edges):
+        if t.device != src.device or not t.is_contiguous():
+            raise ValueError("segment_sum_cuda needs contiguous tensors on "
+                             "one device")
+    # A run of n entries has ceil(n / SEG_PIECE) pieces: at most
+    # ceil(K / SEG_PIECE) + (rows with an entry) in all.
+    max_pieces = -(-k // SEG_PIECE) + min(n_rows, k)
+    if n_rows < 0 or max(n_rows, max_pieces) >= 2**31 or w >= 2**31:
+        raise ValueError(f"segment_sum_cuda: {n_rows} rows of width {w}")
+    pieces = (edges[1:] - edges[:-1] + (SEG_PIECE - 1)) // SEG_PIECE
+    offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=src.device)
+    torch.cumsum(pieces, 0, out=offsets[1:])
+    slots = torch.empty((max_pieces, w), dtype=torch.float64,
+                        device=src.device)
+    out = torch.empty((n_rows, w), dtype=torch.float32, device=src.device)
+    err = _load_segment_lib().segment_sum_launch(
+        src.data_ptr(), perm.data_ptr(), edges.data_ptr(), offsets.data_ptr(),
+        slots.data_ptr() if slots.numel() else None, out.data_ptr(), n_rows,
+        max_pieces, w, SEG_PIECE, src.device.index or 0, _stream_of(src))
+    if err != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
+                           f"{err} at K={k}, W={w}, rows={n_rows}")
+    segment_sum_cuda.launches += 1
+    return out
+
+
+segment_sum_cuda.launches = 0
+
+
+def index_add_ordered(n_rows: int, idx: torch.Tensor,
+                      src: torch.Tensor) -> torch.Tensor:
+    """``zeros(n_rows, …).index_add_(0, idx, src)`` with every row's
+    duplicates added in a fixed order: a stable sort of ``idx`` puts each
+    row's entries in their index order, and a segmented sum adds each run
+    in an order set by its entries alone (``segment_sum_cuda`` on a CUDA
+    tensor, ``segment_sum_ref`` on a CPU tensor). The bits do not depend
+    on the launch, where ``index_add_`` on a CUDA tensor adds duplicates
+    with float atomics in whatever order they land."""
+    perm, edges = _sorted_segments(idx, n_rows)
+    flat = src.reshape(src.shape[0], -1)
+    if src.device.type == "cuda":
+        out = segment_sum_cuda(flat.contiguous(), perm, edges)
+    elif src.device.type == "cpu":
+        out = segment_sum_ref(flat, perm, edges)
+    else:
+        raise ValueError(f"no segmented sum on {src.device}")
+    return out.reshape(n_rows, *src.shape[1:])
+
+
+class _GatherRows(torch.autograd.Function):
+    """``index_select`` forward; the backward adds the cotangent rows of
+    each gathered row in a fixed order (``index_add_ordered``)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return index_add_ordered(ctx.n_rows, idx, g), None
+
+
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for an integer index of any shape, by ``index_select``:
-    the same values. Under autograd its backward adds the duplicates with
-    atomics, where advanced indexing's backward sorts the indices and adds
-    each row's duplicates one after another. In the planner every group
-    gathers the same few top-level nodes, and with that sorted backward one
-    galaxy Barnes-Hut value+grad took 171.7 ms on an H100 instead of
-    27.8 ms (PERF.md)."""
-    return torch.index_select(table, 0, idx.reshape(-1)).reshape(
-        *idx.shape, *table.shape[1:])
+    the same values. In the planner every group gathers the same few
+    top-level nodes, so the backward adds many duplicates per row. It adds
+    them in a fixed order (``_GatherRows``), so a Barnes-Hut gradient is
+    bitwise the same on two calls. ``index_select``'s own backward adds
+    them with float atomics, in no fixed order. Advanced indexing's
+    backward is also ordered, but took one galaxy Barnes-Hut value+grad
+    from 27.8 to 171.7 ms on an H100 (PERF.md)."""
+    flat = idx.reshape(-1)
+    out = (_GatherRows.apply(table, flat) if table.requires_grad
+           else torch.index_select(table, 0, flat))
+    return out.reshape(*idx.shape, *table.shape[1:])
 
 
 def _compact(flags: torch.Tensor, values: torch.Tensor, cap: int):

@@ -83,6 +83,16 @@ def init_distributed(coordinator_address: str | None = None,
                             world_size=num_processes, rank=process_id)
 
 
+def process_index() -> int:
+    """This process's rank in the default group; 0 without one."""
+    return dist.get_rank() if is_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes in the default group; 1 without one."""
+    return dist.get_world_size() if is_initialized() else 1
+
+
 def local_layout(n_global: int, n_devices: int, config: SimConfig) -> int:
     """Slots per shard L for ``n_global`` particles on ``n_devices`` shards,
     the rounding of ``distribute_state``: a power-of-two leaf count times

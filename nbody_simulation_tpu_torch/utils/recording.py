@@ -14,15 +14,17 @@ Compression is zstd (level ≤ 22), or zlib (level ≤ 9) where the
 ``zstandard`` module is missing; a stream carries no codec tag, so it is
 read back with the codec that wrote it (``CODEC``).
 
-``playback_sharded`` reads the JAX package's sharded recordings (one
-stream per process plus ``manifest.json``). Writing them
-(``ShardedRecorder``) is not ported yet (ROADMAP.md item 6, the sharded
-checkpoint and recorder).
+A distributed run records per process (``ShardedRecorder``): each
+process streams only its own rows to ``rec_{pid:05d}.bin`` and process 0
+writes ``manifest.json`` with every process's global row spans;
+``playback_sharded`` reassembles the global frames. Both follow the JAX
+package's sharded layout, so each package plays the other's back.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
 from pathlib import Path
 
@@ -125,6 +127,87 @@ def playback(path: str | Path, initial_pos: np.ndarray | None = None):
                                       (-1, 2) if pos is None else pos.shape)
             pos = delta if pos is None else pos + delta
             yield step, pos.copy()
+
+
+class ShardedRecorder:
+    """Per-process position-delta recording of a distributed state.
+
+    ``path`` is a directory: this process writes ``rec_{pid:05d}.bin``, a
+    ``Recorder`` stream of its local shards' rows in shard order (padding
+    rows included: they sit still and compress to almost nothing), and
+    process 0 writes ``manifest.json`` (``version``, ``every``,
+    ``n_processes``, ``n_rows``, ``spans``: every process's global row
+    ranges, gathered with ``torch.distributed`` where there are several).
+    The first frame each process writes is absolute. The cadence is
+    ``step % every == 0`` with catch-up: ``maybe_record`` may be called at
+    batch boundaries coarser than ``every``, and records once whenever a
+    multiple of ``every`` was reached since its last frame; the first call
+    sets the first due step, the first multiple at or after its step."""
+
+    def __init__(self, path: str | Path, every: int = 10, level: int = 22):
+        from nbody_simulation_tpu_torch.parallel.multihost import (
+            process_index)
+        self.dir = Path(path)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.pid = process_index()
+        self.every = max(1, every)
+        self._next_due: int | None = None
+        self._rec = Recorder(self.dir / f"rec_{self.pid:05d}.bin",
+                             every=every, level=level)
+        self._manifest_done = False
+
+    def _write_manifest(self, n_rows: int, spans) -> None:
+        from nbody_simulation_tpu_torch.parallel.multihost import (
+            process_count)
+        nproc = process_count()
+        spans = [(int(a), int(b)) for a, b in spans]
+        if nproc == 1:
+            all_spans = [spans]
+        else:
+            import torch.distributed as dist
+            all_spans = [None] * nproc
+            dist.all_gather_object(all_spans, spans)
+        if self.pid == 0:
+            man = {"version": SHARDED_REC_VERSION, "every": self.every,
+                   "n_processes": nproc, "n_rows": int(n_rows),
+                   "spans": [[list(s) for s in proc] for proc in all_spans]}
+            tmp = self.dir / "manifest.json.tmp"
+            tmp.write_text(json.dumps(man))
+            os.replace(tmp, self.dir / "manifest.json")
+        self._manifest_done = True
+
+    def maybe_record(self, state, step: int, mesh) -> bool:
+        """Record this process's rows of ``state`` (a distributed state on
+        ``mesh``) if a multiple of ``every`` was reached since the last
+        frame; return whether it did. Every process calls it at the same
+        steps (the first frame gathers the manifest's spans)."""
+        from nbody_simulation_tpu_torch.parallel.multihost import local_block
+        if self._next_due is None:
+            self._next_due = -(-step // self.every) * self.every
+        if step < self._next_due:
+            return False
+        block, spans = local_block(state.pos, mesh)
+        if not self._manifest_done:
+            self._write_manifest(block.shape[0] * mesh.n_shards
+                                 // mesh.n_local, spans)
+        self._rec.record(block, step)
+        self._next_due = (step // self.every + 1) * self.every
+        return True
+
+    @property
+    def frames(self) -> int:
+        return self._rec.frames
+
+    @property
+    def raw_bytes(self) -> int:
+        return self._rec.raw_bytes
+
+    @property
+    def comp_bytes(self) -> int:
+        return self._rec.comp_bytes
+
+    def close(self) -> None:
+        self._rec.close()
 
 
 def playback_sharded(path: str | Path):

@@ -51,6 +51,42 @@ class PhaseTimer:
         return False
 
 
+class trace:
+    """torch.profiler trace hook: ``with trace("/tmp/tb"): world.run(10)``.
+
+    Writes one Chrome trace (``*.pt.trace.json``, which TensorBoard's
+    profiler plugin and chrome://tracing read) into ``log_dir`` when the
+    block ends: the host's operations and, where CUDA is available, the
+    card's kernels. The counterpart of the JAX package's ``jax.profiler``
+    hook; like it, a no-op if the profiler cannot start."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self._prof = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=acts, on_trace_ready=(
+                tensorboard_trace_handler(str(self.log_dir))))
+            prof.__enter__()
+            self._prof = prof
+        except Exception:
+            self._prof = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            self._prof = None
+        return False
+
+
 class EnergyMeter:
     """Cadence total-energy telemetry for the Engine's ``on_batch`` hook.
 

@@ -128,7 +128,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 def test_import_port_leaves_jax_unloaded():
     code = (
         "import sys\n"
-        "import nbody_simulation_tpu_torch, nbody_simulation_tpu_torch.run\n"
+        "import nbody_simulation_tpu_torch, nbody_simulation_tpu_torch.run, "
+        "nbody_simulation_tpu_torch.run_multihost\n"
         "import nbody_simulation_tpu_torch.models, "
         "nbody_simulation_tpu_torch.ops, nbody_simulation_tpu_torch.runtime, "
         "nbody_simulation_tpu_torch.parallel\n"
@@ -157,3 +158,86 @@ def test_native_sources_are_the_ports_own():
         assert (native / f"{name}.cpp").is_file()
     for path in sorted(PORT_DIR.rglob("*.py")):  # no path into it either
         assert '"nbody_simulation_tpu"' not in path.read_text(), path
+
+
+# -- the small names: constants, morton_encode, accept_node_scalar, trace ----
+
+def test_constants_match_the_jax_package():
+    """The rate constants and the "+clamp" floor equal the JAX package's,
+    and the kernels' floor (``csrc/pair_law.cuh`` kL1Clamp) is the same
+    number as the Python one."""
+    import re
+
+    from nbody_simulation_tpu.ops import allpairs as jap
+    from nbody_simulation_tpu.ops import energy as jen
+    from nbody_simulation_tpu_torch.ops import allpairs as tap
+    from nbody_simulation_tpu_torch.ops import energy as ten
+    assert tap.FLOPS_PER_PAIR == jap.FLOPS_PER_PAIR == 22
+    assert tap.L1_CLAMP == jap.L1_CLAMP == 1e-12
+    assert ten.POT_FLOPS_PER_PAIR == jen.POT_FLOPS_PER_PAIR == 10
+    header = (PORT_DIR / "csrc" / "pair_law.cuh").read_text()
+    (value,) = re.findall(r"kL1Clamp\s*=\s*([0-9.eE+-]+)f;", header)
+    assert np.float32(value) == np.float32(tap.L1_CLAMP)
+
+
+@pytest.mark.parametrize("bits", [15, 24])
+def test_morton_encode_matches_jax(bits):
+    """Bitwise the JAX ``morton_encode`` (the high key word) on a cloud
+    with padding rows and coordinates beyond the world at both ends. Both
+    packages take 1 to 24 bits per axis and refuse 30."""
+    import jax.numpy as jnp
+
+    from nbody_simulation_tpu.ops.morton import morton_encode as jenc
+    from nbody_simulation_tpu_torch.ops.morton import morton_encode as tenc
+    rng = np.random.default_rng(bits)
+    pos = rng.uniform(-1e3, 1.01e5, (4096, 2)).astype(np.float32)
+    mass = rng.integers(0, 4, 4096).astype(np.float32)
+    got = tenc(torch.tensor(pos), torch.tensor(mass), 1e5, bits).numpy()
+    want = np.asarray(jenc(jnp.asarray(pos), jnp.asarray(mass), 1e5, bits))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(AssertionError):
+        jenc(jnp.asarray(pos), jnp.asarray(mass), 1e5, 30)
+    with pytest.raises(ValueError, match="bits"):
+        tenc(torch.tensor(pos), torch.tensor(mass), 1e5, 30)
+
+
+def test_accept_node_scalar_matches_jax():
+    """The reference's per-particle criterion on seeded random nodes and
+    points (some inside their node, some on its edges), one at a time as
+    the JAX function takes them and all at once."""
+    import jax.numpy as jnp
+
+    from nbody_simulation_tpu.ops.traversal import accept_node_scalar as jacc
+    from nbody_simulation_tpu_torch.ops.traversal import (
+        accept_node_scalar as tacc)
+    rng = np.random.default_rng(5)
+    n = 256
+    nmin = rng.uniform(0, 9e4, (n, 2)).astype(np.float32)
+    nmax = nmin + rng.uniform(1, 1e4, (n, 2)).astype(np.float32)
+    com = (nmin + rng.uniform(0, 1, (n, 2)).astype(np.float32)
+           * (nmax - nmin)).astype(np.float32)
+    p = rng.uniform(0, 1e5, (n, 2)).astype(np.float32)
+    p[:32] = com[:32]                     # inside their node
+    p[32:48, 0] = nmin[32:48, 0]          # on an edge: not strictly inside
+    theta = np.float32(0.7)
+    want = np.array([bool(jacc(jnp.asarray(p[i]), jnp.asarray(nmin[i]),
+                               jnp.asarray(nmax[i]), jnp.asarray(com[i]),
+                               theta)) for i in range(n)])
+    got = tacc(*(torch.tensor(a) for a in (p, nmin, nmax, com)),
+               float(theta)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < n and not want[:32].any()
+    one = tacc(*(torch.tensor(a[40]) for a in (p, nmin, nmax, com)),
+               float(theta))
+    assert bool(one) == bool(want[40])
+
+
+def test_trace_writes_a_trace_file(tmp_path):
+    from nbody_simulation_tpu_torch.utils.telemetry import trace
+    with trace(tmp_path / "tb") as t:
+        torch.ones(64).cumsum(0)
+    assert t._prof is None
+    files = list((tmp_path / "tb").glob("*.pt.trace.json"))
+    assert len(files) == 1
+    assert "traceEvents" in files[0].read_text()

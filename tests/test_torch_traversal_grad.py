@@ -203,3 +203,64 @@ def test_only_cuda_tensors_reach_the_kernels():
         ttg.grouped_force_bwd(*(a.to("meta") for a in (t, t, s, s, s)))
     assert ttg.grouped_bwd_tgt_cuda.launches == 0
     assert ttg.grouped_bwd_src_cuda.launches == 0
+
+
+# -- (h) the planner's gather: a backward in fixed order ----------------------
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_gather_backward_adds_duplicates_in_fixed_order(dtype):
+    """``traversal._rows`` gathers rows of a table; every group gathers the
+    same top-level nodes, so its backward adds many duplicates per row.
+    Against an f64 ``index_add`` of the same cotangent: within f32 rounding
+    of the sum of |terms| per row (a run of k terms is k - 1 f32 additions).
+    Bitwise on two calls; rows no index names get +0; the forward is
+    ``index_select``'s bits."""
+    from nbody_simulation_tpu_torch.ops.traversal import (_rows,
+                                                          index_add_ordered)
+    rng = np.random.default_rng(12)
+    n_rows, width = 40, 8
+    # Heavy duplicates: rows 0-3 in every group (the top of the tree), a
+    # sparse spread of the rest, rows 30-39 never.
+    idx = np.concatenate([np.tile(np.arange(4), (512, 1)),
+                          rng.integers(4, 30, (512, 6))], axis=1)
+    table = torch.tensor(rng.normal(0, 1, (n_rows, 2, width)).astype(
+        np.float32), requires_grad=True)
+    cot = torch.tensor(rng.normal(0, 1e3, idx.shape + (2, width)).astype(
+        np.float32))
+    tidx = torch.tensor(idx, dtype=dtype)
+
+    def grad():
+        out = _rows(table, tidx)
+        assert torch.equal(out.detach(), table.detach()[tidx.long()])
+        return torch.autograd.grad((out * cot).sum(), table)[0]
+
+    g1, g2 = grad(), grad()
+    assert torch.equal(g1.view(torch.int32), g2.view(torch.int32))
+    flat_cot = cot.reshape(-1, 2, width)
+    want = torch.zeros((n_rows, 2, width), dtype=torch.float64).index_add_(
+        0, tidx.reshape(-1).long(), flat_cot.double())
+    scale = torch.zeros((n_rows, 2, width), dtype=torch.float64).index_add_(
+        0, tidx.reshape(-1).long(), flat_cot.double().abs())
+    runs = torch.bincount(tidx.reshape(-1).long(), minlength=n_rows)
+    bound = (runs.clamp_min(1) - 1)[:, None, None] * 2.0 ** -24 * scale
+    assert bool(((g1.double() - want).abs() <= bound).all())
+    assert int(runs[0]) == 512 and bool((g1[30:] == 0).all())
+    assert torch.equal(g1, index_add_ordered(
+        n_rows, tidx.reshape(-1), flat_cot))
+
+
+def test_segment_sum_runs_only_where_it_can():
+    """The segmented sum's kernel takes CUDA tensors only (and counts no
+    launch otherwise); its plain version adds empty runs as +0."""
+    from nbody_simulation_tpu_torch.ops import traversal as tt
+    src = torch.ones(6, 3)
+    perm = torch.arange(6)
+    edges = torch.tensor([0, 2, 2, 6])
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tt.segment_sum_cuda(src, perm, edges)
+    assert tt.segment_sum_cuda.launches == 0
+    out = tt.segment_sum_ref(src, perm, edges)
+    assert out.dtype == torch.float32
+    assert out.tolist() == [[2.0] * 3, [0.0] * 3, [4.0] * 3]
+    with pytest.raises(ValueError, match="no segmented sum"):
+        tt.index_add_ordered(3, perm.to("meta"), src.to("meta"))
