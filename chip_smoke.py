@@ -42,8 +42,11 @@ version at the main paths' shapes:
   and all-pairs) and on a 1,048,576-body disc, one of them traced; the
   Barnes-Hut value+grad bitwise on two calls (output and both gradients);
   the segmented sum of the planner's gathers' backward
-  (``csrc/segment_sum.cu``) at every shape a galaxy value+grad gives it,
-  against its plain version and bitwise on two calls, timed beside
+  (``csrc/segment_sum.cu``) at every shape a galaxy value+grad gives it
+  and at edge shapes (runs of one, one row holding every entry, rows with
+  none, runs of whole windows, ragged K, K=0, int32 and int64 keys,
+  widths not a multiple of 32), against its plain version and bitwise on
+  two calls, timed beside ``index_add_`` and the deterministic
   ``index_add_``; and the gradient of the galaxy's spread after 4 Euler
   steps;
 - the multi-device paths on a ``LocalMesh`` of P shards on the card (one
@@ -71,8 +74,9 @@ version at the main paths' shapes:
   force against single-device ``bh_accel``; the θ=0.5 Plummer with seam
   matchings against the ring, the ring with full caps against a single
   device, the gradient at P=4 against ``bh_accel_diff`` and bitwise on two
-  calls; and K3, K8 and K4 at the local (S=256), near (S=512) and forest
-  (S=2048) rows;
+  calls, the segmented sum at every shape it gives at θ=50 and θ=0.5, and
+  one traced P=4 value+grad; and K3, K8 and K4 at the local (S=256), near
+  (S=512) and forest (S=2048) rows;
 - the distributed CLI (``cli_phase``), ``python -m
   nbody_simulation_tpu_torch.run_multihost`` in subprocesses: one NCCL
   rank with the self-check, energies, a sharded recording (held to an
@@ -388,6 +392,40 @@ def all_entries_ms(prof) -> float:
     return sum(dev_us(e) for e in prof.key_averages()) / 1e3
 
 
+def segment_bound(k: int, w: int, n_rows: int, key_bytes: int):
+    """(bound_ms, bound_by, note) of the segmented sum of K gathered rows
+    of width W into n_rows: each input read once (the f32 rows, the sorted
+    key, the i64 permutation), the f32 output written once, over the memory
+    rate; its K·W f64 adds over the FP64 rate."""
+    nbytes = 4.0 * k * w + (key_bytes + 8.0) * k + 4.0 * n_rows * w
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_adds = float(k) * w / FP64_PER_S
+    return (max(t_bytes, t_adds) * 1e3,
+            "bytes" if t_bytes >= t_adds else "operations",
+            f"{nbytes:.4e} bytes over {HBM_BYTES_PER_S:.3e} B/s "
+            f"{t_bytes * 1e3:.4f} ms, {k * w:.4e} f64 adds over "
+            f"{FP64_PER_S:.1e} op/s {t_adds * 1e3:.4f} ms")
+
+
+@contextlib.contextmanager
+def captured_gathers():
+    """Inside the block, every call of the planner's gather backward
+    (``ops/traversal.py:index_add_ordered``) appends its (n_rows, idx,
+    src) to the list it yields, and runs as it would."""
+    from nbody_simulation_tpu_torch.ops import traversal
+    calls, real = [], traversal.index_add_ordered
+
+    def capture(n_rows, idx, src):
+        calls.append((n_rows, idx, src))
+        return real(n_rows, idx, src)
+
+    traversal.index_add_ordered = capture
+    try:
+        yield calls
+    finally:
+        traversal.index_add_ordered = real
+
+
 N_DIST = 8_388_608   # the distributed path: P=8 shards of 1,048,576
 DIST_P = 8
 DIST_STEPS = 16
@@ -446,6 +484,7 @@ def distributed_phase(h):
     # first inputs (K3 and K8 are held at these shapes below).
     real_sweep = bd._sweep
     stages, first = {}, {}
+    seg_rows = {}  # the segmented sum at the gradient's largest shapes
 
     def staged_sweep(stage, tgt, cols, cfg, mp, rcp, force=None):
         k3, k4 = gs.launches, gs.quad_launches
@@ -757,8 +796,9 @@ def distributed_phase(h):
             m = gds.mass.clone().requires_grad_(True)
             zero_counts()
             t0 = time.perf_counter()
-            a = par.bh_distributed_accel_diff(p, m, mesh4, config=gcfg)
-            gp, gm = torch.autograd.grad((a * cot).sum(), (p, m))
+            with captured_gathers() as gathers:
+                a = par.bh_distributed_accel_diff(p, m, mesh4, config=gcfg)
+                gp, gm = torch.autograd.grad((a * cot).sum(), (p, m))
             torch.cuda.synchronize()
             vg_ms = (time.perf_counter() - t0) * 1e3
             grad_counts[theta] = read_counts()
@@ -816,6 +856,46 @@ def distributed_phase(h):
                 raise RuntimeError(f"distributed gradient theta={theta}: "
                                    f"{dp}, {dm}, launches "
                                    f"{grad_counts[theta]}")
+            # The segmented sum at every shape this gradient gives it.
+            seg_err, (sn, sidx, sflat, skey, sperm) = h.hold_seg(
+                f"the P=4 distributed gradient, theta={theta}", gathers)
+            seg_ms = h.timed_ms(lambda: traversal.segment_sum_cuda(
+                sflat, skey, sperm, sn), reps=20)
+            _, seg_plain = h.plain_timed(lambda: traversal.segment_sum_ref(
+                sflat, skey, sperm, sn))
+            seg_bd = segment_bound(*sflat.shape, sn, skey.element_size())
+            seg_rows[f"segment_sum P=4 theta={theta}"] = (
+                seg_err, seg_ms, seg_plain, seg_bd)
+            log(f"segment_sum, the largest call of the P=4 gradient at "
+                f"theta={theta} (K={sflat.shape[0]}, W={sflat.shape[1]}, "
+                f"{sn} rows, longest run {int(torch.bincount(skey).max())}):"
+                f" kernel {seg_ms:.4f} ms, plain {seg_plain:.3f} ms (once), "
+                f"bound {seg_bd[0]:.4f} ms by {seg_bd[1]}")
+            del gathers, sidx, sflat, skey, sperm
+            if theta == 50.0:
+                # One traced value+grad: device time and operations.
+                from torch.profiler import ProfilerActivity, profile
+                p3 = gds.pos.clone().requires_grad_(True)
+                m3 = gds.mass.clone().requires_grad_(True)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    a3 = par.bh_distributed_accel_diff(p3, m3, mesh4,
+                                                       config=gcfg)
+                    torch.autograd.grad((a3 * cot).sum(), (p3, m3))
+                    torch.cuda.synchronize()
+                d_ms = device_ms(prof)
+                d_ops = sum(1 for e in prof.events() if on_device(e))
+                d_seg = device_ms(prof, "segment_windows", "segment_carry")
+                del p3, m3, a3, prof
+                gal_vg = getattr(h, "vg_trace", None)
+                log(f"traced value+grad, P=4 distributed theta=50: device "
+                    f"time {d_ms:.3f} ms in {d_ops} device operations, "
+                    f"segment_sum {d_seg:.3f} ms"
+                    + ("" if gal_vg is None else
+                       f"; galaxy bh_accel_diff: {gal_vg[0]:.3f} ms in "
+                       f"{gal_vg[1]} operations, segment_sum "
+                       f"{gal_vg[2]:.3f} ms"))
         del gds, p, m, a, gp, gm, p1, m1, a1, gp1, gm1, run, cot
         stage_report()
     finally:
@@ -823,7 +903,7 @@ def distributed_phase(h):
 
     # -- the kernels at this path's row shapes: K3 (and K8) from the θ=50
     # stages' inputs
-    kernel_rows = {}
+    kernel_rows = dict(seg_rows)
     for stage, (tgt, cols, rcp) in sorted(first.items()):
         g, s, _ = tgt.shape
         if s not in (256, 512, 2048):
@@ -1306,6 +1386,45 @@ def main() -> int:
                 (mr * gy).abs() + mr2t * (q + (two_sk * dy).abs()),
                 (r * (dx * gx + dy * gy)).abs())
 
+    def hold_seg(label, calls):
+        """The segmented sum at each (n_rows, idx, src) of ``calls``, sorted
+        as ``index_add_ordered`` sorts, against its plain version: within
+        1e-6 of each row's Σ|x| (both add each run in f64 and round once,
+        in other orders), two calls bitwise, rows no index names +0.
+        Returns (max |d|, the largest call as (n_rows, idx, flat, key,
+        perm))."""
+        err_max, big, shapes = 0.0, None, set()
+        for n_rows, idx, src in calls:
+            flat = src.reshape(src.shape[0], math.prod(src.shape[1:]))
+            flat = flat.contiguous()
+            key, perm = torch.sort(idx, stable=True)
+            got = traversal.segment_sum_cuda(flat, key, perm, n_rows)
+            again = traversal.segment_sum_cuda(flat, key, perm, n_rows)
+            want = traversal.segment_sum_ref(flat, key, perm, n_rows)
+            scale = traversal.segment_sum_ref(flat.abs(), key, perm,
+                                              n_rows).double()
+            empty = torch.bincount(key, minlength=n_rows) == 0
+            err = ((got.double() - want.double()).abs()
+                   / scale.clamp_min(1e-30)).max().item() if got.numel() \
+                else 0.0
+            if not (same_bits(got, again) and err <= 1e-6 and bool(
+                    (got[empty].view(torch.int32) == 0).all())):
+                raise RuntimeError(
+                    f"segment_sum at {label}, K={flat.shape[0]}, W="
+                    f"{flat.shape[1]}, rows={n_rows}, {key.dtype}: {err} of "
+                    "sum|x| from the plain version, two calls differ, or a "
+                    "row with no entry is not +0")
+            if got.numel():
+                err_max = max(err_max, (got - want).abs().max().item())
+            shapes.add((flat.shape[0], flat.shape[1], n_rows))
+            if big is None or flat.numel() > big[2].numel():
+                big = (n_rows, idx, flat, key, perm)
+        log(f"segment_sum at {label}: {len(calls)} calls, {len(shapes)} "
+            f"shapes (K, W, rows) {sorted(shapes)}: every one within 1e-6 of "
+            f"sum|x| of the plain version (max |d| {err_max:.3e}), bitwise "
+            "on two calls, rows with no entry +0")
+        return err_max, big
+
     def hold_k8(label, k8in):
         """K8a and K8b against their plain versions on ``k8in`` = (tgt,
         gbar, src_x, src_y, src_m), every output, bounded relative to the
@@ -1625,7 +1744,8 @@ def main() -> int:
 
     helpers = types.SimpleNamespace(
         log=log, dev=dev, hold=hold, hold_mono=hold_mono, hold_quad=hold_quad,
-        hold_k8=hold_k8, timed_ms=timed_ms, plain_timed=plain_timed,
+        hold_k8=hold_k8, hold_seg=hold_seg, timed_ms=timed_ms,
+        plain_timed=plain_timed,
         bound=bound, softening2=SOFTENING2,
         rcp_modes=RCP_MODES)
     if "--only-distributed" in sys.argv[1:]:
@@ -2289,63 +2409,55 @@ def main() -> int:
                            f"(output, positions, masses): {twice}")
 
     # The segmented sum (csrc/segment_sum.cu) at the shapes one galaxy
-    # value+grad gives it, against its plain version (each run added in
-    # f64, rounded once: within 1e-6 of the run's Σ|x|), two calls bitwise.
-    seg_calls = []
-    real_iao = traversal.index_add_ordered
-
-    def capture_iao(n_rows, idx, src):
-        seg_calls.append((n_rows, idx, src))
-        return real_iao(n_rows, idx, src)
-
-    traversal.index_add_ordered = capture_iao
-    try:
+    # value+grad gives it and at edge shapes, against its plain version.
+    with captured_gathers() as seg_calls:
         value_grad(tgr.bh_accel_diff, gal0.pos, gal0.mass)
-    finally:
-        traversal.index_add_ordered = real_iao
-    seg_err, seg_big = 0.0, None
-    for n_rows, idx, src in seg_calls:
-        flat = src.reshape(src.shape[0], -1).contiguous()
-        perm, edges = traversal._sorted_segments(idx, n_rows)
-        got = traversal.segment_sum_cuda(flat, perm, edges)
-        again = traversal.segment_sum_cuda(flat, perm, edges)
-        want = traversal.segment_sum_ref(flat, perm, edges)
-        scale = traversal.segment_sum_ref(flat.abs(), perm, edges).double()
-        err = ((got.double() - want.double()).abs()
-               / scale.clamp_min(1e-30)).max().item()
-        seg_err = max(seg_err, (got - want).abs().max().item())
-        if not (torch.equal(got, again) and err <= 1e-6):
-            raise RuntimeError(f"segment_sum at K={flat.shape[0]}, W="
-                               f"{flat.shape[1]}, rows={n_rows}: {err} of "
-                               "sum|x| from the plain version, or two calls "
-                               "differ")
-        if seg_big is None or flat.numel() > seg_big[2].numel():
-            seg_big = (n_rows, idx, flat, perm, edges)
-    n_rows, idx, flat, perm, edges = seg_big
+    seg_err, seg_big = hold_seg("one galaxy value+grad", seg_calls)
+    window = traversal._segment_window
+    rng = np.random.default_rng(7)
+    edge_calls = []
+    for w_ in (1, 16, 44, 128, 130):
+        for n_rows, idx in (
+                (4096, rng.permutation(4096)),               # runs of one
+                (4096, np.full(65_536, 1234)),               # one row
+                (4096, rng.integers(0, 2048, 3000) * 2),     # rows with none
+                (10, np.repeat([1, 4, 7, 8], 2 * window)),   # whole windows
+                (50, rng.integers(0, 50, 4 * window + 77)),  # ragged K
+                (5, np.zeros(0, np.int64))):                 # K = 0
+            src = torch.tensor(rng.normal(0, 1, (len(idx), w_)).astype(
+                np.float32), device=dev)
+            for dt in (torch.int32, torch.int64):
+                edge_calls.append((n_rows, torch.tensor(idx, dtype=dt,
+                                                        device=dev), src))
+    seg_err = max(seg_err, hold_seg("edge shapes", edge_calls)[0])
+    del edge_calls
+    n_rows, idx, flat, key, perm = seg_big
     k_, w_ = flat.shape
-    ms_seg = timed_ms(lambda: traversal.segment_sum_cuda(flat, perm, edges),
+    ms_seg = timed_ms(lambda: traversal.segment_sum_cuda(flat, key, perm,
+                                                         n_rows), reps=20)
+    ms_iao = timed_ms(lambda: traversal.index_add_ordered(n_rows, idx, flat),
                       reps=20)
     _, ms_seg_plain = plain_timed(lambda: traversal.segment_sum_ref(
-        flat, perm, edges))
-    ms_seg_lib = timed_ms(lambda: torch.zeros(
+        flat, key, perm, n_rows))
+    ms_seg_atomic = timed_ms(lambda: torch.zeros(
         (n_rows, w_), device=dev).index_add_(0, idx, flat), reps=20)
-    seg_bytes = 4.0 * k_ * w_ + 8.0 * k_ + 8.0 * (n_rows + 1) \
-        + 4.0 * n_rows * w_
-    t_bytes = seg_bytes / HBM_BYTES_PER_S
-    t_adds = float(k_) * w_ / FP64_PER_S
-    seg_bound = (max(t_bytes, t_adds) * 1e3,
-                 "bytes" if t_bytes >= t_adds else "operations",
-                 f"{seg_bytes:.4e} bytes over {HBM_BYTES_PER_S:.3e} B/s "
-                 f"{t_bytes * 1e3:.4f} ms, {k_ * w_:.4e} f64 adds over "
-                 f"{FP64_PER_S:.1e} op/s {t_adds * 1e3:.4f} ms")
-    log(f"segment_sum: {len(seg_calls)} gathers in one galaxy value+grad, "
-        f"every one within 1e-6 of sum|x| of the plain version (max |d| "
-        f"{seg_err:.3e}) and bitwise on two calls; the largest (K={k_}, "
-        f"W={w_}, {n_rows} rows, longest run "
-        f"{int((edges[1:] - edges[:-1]).max())}): kernel {ms_seg:.4f} ms, "
-        f"plain {ms_seg_plain:.3f} ms (once), index_add_ {ms_seg_lib:.4f} "
-        f"ms, bound {seg_bound[0]:.4f} ms by {seg_bound[1]} ({seg_bound[2]})")
-    del seg_calls, seg_big, flat, perm, edges, idx
+    # The one PyTorch call that adds duplicates in a fixed order.
+    torch.use_deterministic_algorithms(True)
+    try:
+        ms_seg_lib = timed_ms(lambda: torch.zeros(
+            (n_rows, w_), device=dev).index_add_(0, idx, flat), reps=5)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    seg_bound = segment_bound(k_, w_, n_rows, key.element_size())
+    log(f"segment_sum, the largest galaxy call (K={k_}, W={w_}, {n_rows} "
+        f"rows, {key.dtype} key, longest run "
+        f"{int(torch.bincount(key).max())}, windows of {window}): kernel "
+        f"{ms_seg:.4f} ms (2 launches), with the sort (index_add_ordered) "
+        f"{ms_iao:.4f} ms, plain {ms_seg_plain:.3f} ms (once), index_add_ "
+        f"{ms_seg_atomic:.4f} ms (float atomics), deterministic index_add_ "
+        f"{ms_seg_lib:.4f} ms, bound {seg_bound[0]:.4f} ms by {seg_bound[1]}"
+        f" ({seg_bound[2]})")
+    del seg_calls, seg_big, flat, key, perm, idx
 
     # One traced BH value+grad on the galaxy: device time, operations, and
     # K8's share.
@@ -2360,7 +2472,7 @@ def main() -> int:
     total = device_ms(prof)
     k8_ms = device_ms(prof, "grouped_bwd")
     k3_ms = device_ms(prof, "grouped_sweep_kernel")
-    seg_trace_ms = device_ms(prof, "segment_pieces", "segment_fold")
+    seg_trace_ms = device_ms(prof, "segment_windows", "segment_carry")
     n_ops = sum(1 for e in prof.events() if on_device(e))
     if total <= 0 or k8_ms <= 0:
         raise RuntimeError(f"BH value+grad trace: device time {total} ms, "
@@ -2376,6 +2488,8 @@ def main() -> int:
         "device time: "
         + "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in top))
+    # The distributed phase prints its traced value+grad beside this one.
+    helpers.vg_trace = (total, n_ops, seg_trace_ms)
 
     # The gradient of the galaxy's spread after 4 Euler steps with respect
     # to the initial positions: K8 once per step.

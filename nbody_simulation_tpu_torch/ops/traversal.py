@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -70,54 +71,50 @@ def _group_node_d2(gmin, gmax, nmin, nmax, ncom):
     return disjoint, s2, dx * dx + dy * dy
 
 
-def _sorted_segments(idx: torch.Tensor, n_rows: int):
-    """(perm, edges): a stable sort of ``idx`` and the bounds of each of
-    the ``n_rows`` rows' runs in it, ``edges`` i64 (n_rows + 1)."""
-    key, perm = torch.sort(idx, stable=True)
-    edges = torch.searchsorted(key, torch.arange(
-        n_rows + 1, dtype=key.dtype, device=key.device))
-    return perm, edges
-
-
-def segment_sum_ref(src: torch.Tensor, perm: torch.Tensor,
-                    edges: torch.Tensor) -> torch.Tensor:
-    """The plain version of ``segment_sum_cuda``: row r of the result is
-    the sum of ``src[perm[edges[r]:edges[r+1]]]``, each run added one term
-    after another in f64 and rounded once."""
-    flat = src.reshape(src.shape[0], -1).index_select(0, perm).double()
-    return torch.segment_reduce(flat, "sum", lengths=edges[1:] - edges[:-1],
+def segment_sum_ref(src: torch.Tensor, key: torch.Tensor, perm: torch.Tensor,
+                    n_rows: int) -> torch.Tensor:
+    """The plain version of ``segment_sum_cuda``, with its arguments: row r
+    of the result is the sum of ``src[perm[j]]`` over the run of entries j
+    whose ``key[j]`` is r, added one term after another in f64 and rounded
+    once; a row no key names gets +0."""
+    terms = src.index_select(0, perm).double()
+    return torch.segment_reduce(terms, "sum",
+                                lengths=torch.bincount(key, minlength=n_rows),
                                 axis=0, unsafe=True).float()
 
 
 _segment_lib = None
-
-# Entries per piece of a run in ``segment_sum_cuda``: a multiple of the
-# kernel's 8 warps, each adding a stretch of piece/8 entries.
-SEG_PIECE = 256
+_segment_window = None
 
 
 def _load_segment_lib():
-    global _segment_lib
+    global _segment_lib, _segment_window
     if _segment_lib is None:
         from nbody_simulation_tpu_torch.cuda_build import load_cuda_library
         lib = load_cuda_library("segment_sum")
+        lib.segment_sum_window.restype = ctypes.c_int
+        lib.segment_sum_window.argtypes = []
         lib.segment_sum_launch.restype = ctypes.c_int
         lib.segment_sum_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
+        _segment_window = lib.segment_sum_window()
         _segment_lib = lib
     return _segment_lib
 
 
-def segment_sum_cuda(src: torch.Tensor, perm: torch.Tensor,
-                     edges: torch.Tensor) -> torch.Tensor:
+def segment_sum_cuda(src: torch.Tensor, key: torch.Tensor, perm: torch.Tensor,
+                     n_rows: int) -> torch.Tensor:
     """Launch the fixed-order segmented sum (``csrc/segment_sum.cu``): f32
-    (n_rows, W) from ``src`` f32 (K, W), ``perm`` i64 (K,) and ``edges``
-    i64 (n_rows + 1,), all contiguous on one CUDA device; anything else
-    raises. Each row's run is cut into pieces of ``SEG_PIECE`` entries
-    across the grid, each piece added in a fixed order in f64 into a slot,
-    then a fold adds each row's slots in piece order.
-    ``segment_sum_cuda.launches`` counts the calls."""
+    (n_rows, W) from ``src`` f32 (K, W), ``key`` int32 or int64 (K,), the
+    gather's index sorted stably, and ``perm`` int64 (K,), the permutation
+    that sorts it; all contiguous on one CUDA device, anything else raises.
+    Blocks take fixed windows of the sorted entries and find the run edges
+    in ``key`` themselves; each run is added in f64 in index order, a run
+    cut by a window edge finished by a second pass in window order, and
+    rounded once. Nothing waits on the host. ``segment_sum_cuda.launches``
+    counts the calls."""
     if src.device.type != "cuda":
         raise ValueError(f"segment_sum_cuda needs CUDA tensors, got "
                          f"{src.device}")
@@ -125,30 +122,29 @@ def segment_sum_cuda(src: torch.Tensor, perm: torch.Tensor,
         raise ValueError(f"src must be f32 (K, W), got {src.dtype} "
                          f"{tuple(src.shape)}")
     k, w = src.shape
-    n_rows = edges.shape[0] - 1
-    for t, shape in ((perm, (k,)), (edges, (n_rows + 1,))):
-        if t.dtype != torch.int64 or tuple(t.shape) != shape:
-            raise ValueError(f"perm and edges must be int64 {(k,)} and "
-                             f"(n_rows + 1,), got {t.dtype} {tuple(t.shape)}")
-    for t in (src, perm, edges):
+    if (key.dtype not in (torch.int32, torch.int64) or tuple(key.shape) != (k,)
+            or perm.dtype != torch.int64 or tuple(perm.shape) != (k,)):
+        raise ValueError(f"key must be int32 or int64 and perm int64, both "
+                         f"{(k,)}, got {key.dtype} {tuple(key.shape)} and "
+                         f"{perm.dtype} {tuple(perm.shape)}")
+    for t in (src, key, perm):
         if t.device != src.device or not t.is_contiguous():
             raise ValueError("segment_sum_cuda needs contiguous tensors on "
                              "one device")
-    # A run of n entries has ceil(n / SEG_PIECE) pieces: at most
-    # ceil(K / SEG_PIECE) + (rows with an entry) in all.
-    max_pieces = -(-k // SEG_PIECE) + min(n_rows, k)
-    if n_rows < 0 or max(n_rows, max_pieces) >= 2**31 or w >= 2**31:
+    if not 0 <= n_rows < 2**31 or w >= 2**21:
         raise ValueError(f"segment_sum_cuda: {n_rows} rows of width {w}")
-    pieces = (edges[1:] - edges[:-1] + (SEG_PIECE - 1)) // SEG_PIECE
-    offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=src.device)
-    torch.cumsum(pieces, 0, out=offsets[1:])
-    slots = torch.empty((max_pieces, w), dtype=torch.float64,
-                        device=src.device)
     out = torch.empty((n_rows, w), dtype=torch.float32, device=src.device)
-    err = _load_segment_lib().segment_sum_launch(
-        src.data_ptr(), perm.data_ptr(), edges.data_ptr(), offsets.data_ptr(),
-        slots.data_ptr() if slots.numel() else None, out.data_ptr(), n_rows,
-        max_pieces, w, SEG_PIECE, src.device.index or 0, _stream_of(src))
+    if out.numel() == 0:
+        return out
+    lib = _load_segment_lib()
+    # Scratch: two f64 partials a window, only those a window edge cuts
+    # written and read.
+    slots = torch.empty((max(1, -(-k // _segment_window)), 2, w),
+                        dtype=torch.float64, device=src.device)
+    err = lib.segment_sum_launch(
+        src.data_ptr(), key.data_ptr(), key.element_size(), perm.data_ptr(),
+        slots.data_ptr(), out.data_ptr(), k, n_rows, w,
+        src.device.index or 0, _stream_of(src))
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
                            f"{err} at K={k}, W={w}, rows={n_rows}")
@@ -164,16 +160,17 @@ def index_add_ordered(n_rows: int, idx: torch.Tensor,
     """``zeros(n_rows, …).index_add_(0, idx, src)`` with every row's
     duplicates added in a fixed order: a stable sort of ``idx`` puts each
     row's entries in their index order, and a segmented sum adds each run
-    in an order set by its entries alone (``segment_sum_cuda`` on a CUDA
-    tensor, ``segment_sum_ref`` on a CPU tensor). The bits do not depend
-    on the launch, where ``index_add_`` on a CUDA tensor adds duplicates
-    with float atomics in whatever order they land."""
-    perm, edges = _sorted_segments(idx, n_rows)
-    flat = src.reshape(src.shape[0], -1)
+    in an order set by the sorted index alone (``segment_sum_cuda`` on a
+    CUDA tensor, ``segment_sum_ref`` on a CPU tensor). The bits do not
+    depend on the launch, where ``index_add_`` on a CUDA tensor adds
+    duplicates with float atomics in whatever order they land. An int32
+    ``idx`` sorts in half the radix passes of an int64 one."""
+    key, perm = torch.sort(idx, stable=True)
+    flat = src.reshape(src.shape[0], math.prod(src.shape[1:]))
     if src.device.type == "cuda":
-        out = segment_sum_cuda(flat.contiguous(), perm, edges)
+        out = segment_sum_cuda(flat.contiguous(), key, perm, n_rows)
     elif src.device.type == "cpu":
-        out = segment_sum_ref(flat, perm, edges)
+        out = segment_sum_ref(flat, key, perm, n_rows)
     else:
         raise ValueError(f"no segmented sum on {src.device}")
     return out.reshape(n_rows, *src.shape[1:])
@@ -428,7 +425,7 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
     if cut is not None:
         # Flush: the still-open frontier nodes at the cut become COM
         # columns (close nodes: monopole only, like the overflow fallback).
-        rec = _rows(packed_of(tree.levels[cut]), frontier.to(torch.int64))
+        rec = _rows(packed_of(tree.levels[cut]), frontier)
         zero = torch.zeros((), device=dev)
         src_cols[0].append(rec[..., 4])
         src_cols[1].append(rec[..., 5])
@@ -439,7 +436,6 @@ def plan_rows(tree: FlatTree, own, theta: float, frontier_cap: int,
 
     # Leaf tiles: gather (G, L, S) particle data; invalid slots massless,
     # particles without second moments.
-    leaf_ids = leaf_ids.to(torch.int64)
     lp = _rows(tree.leaf_pos, leaf_ids)                 # (G, L, S, 2)
     lm = _rows(tree.leaf_mass, leaf_ids) * leaf_valid[..., None]
     n_src = leaf_ids.shape[1] * tree.leaf_pos.shape[1]

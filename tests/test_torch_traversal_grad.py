@@ -207,8 +207,37 @@ def test_only_cuda_tensors_reach_the_kernels():
 
 # -- (h) the planner's gather: a backward in fixed order ----------------------
 
-@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
-def test_gather_backward_adds_duplicates_in_fixed_order(dtype):
+def _top_nodes(rng):
+    """Rows 0-3 in every one of 512 groups (the top of the tree), a sparse
+    spread of rows 4-29, rows 30-39 never."""
+    return np.concatenate([np.tile(np.arange(4), (512, 1)),
+                           rng.integers(4, 30, (512, 6))], axis=1)
+
+
+# Index shapes for the segmented sum, whose kernel takes windows of 256
+# sorted entries (the largest window a build may choose, 512, too): a run
+# cut by window edges or filling them exactly, runs of one, rows with none.
+GATHER_INDICES = {
+    "top-nodes": _top_nodes,
+    "every-row-once": lambda rng: rng.permutation(40)[:, None],
+    "one-row-all": lambda rng: np.full((700, 1), 17),
+    "runs-of-whole-windows": lambda rng: np.repeat([2, 5, 6, 9], 512)[
+        rng.permutation(2048)].reshape(256, 8),
+    "ragged-K": lambda rng: rng.integers(0, 40, (333, 3)) // 3 * 3,
+}
+
+
+# Ids: dtype0/dtype1 for the top-nodes cases, the index's name first for
+# the others.
+GATHER_CASES = [
+    pytest.param(case, dtype, id=(f"dtype{k}" if case == "top-nodes"
+                                  else f"{case}-dtype{k}"))
+    for case in GATHER_INDICES
+    for k, dtype in enumerate((torch.int64, torch.int32))]
+
+
+@pytest.mark.parametrize("case, dtype", GATHER_CASES)
+def test_gather_backward_adds_duplicates_in_fixed_order(case, dtype):
     """``traversal._rows`` gathers rows of a table; every group gathers the
     same top-level nodes, so its backward adds many duplicates per row.
     Against an f64 ``index_add`` of the same cotangent: within f32 rounding
@@ -219,10 +248,7 @@ def test_gather_backward_adds_duplicates_in_fixed_order(dtype):
                                                           index_add_ordered)
     rng = np.random.default_rng(12)
     n_rows, width = 40, 8
-    # Heavy duplicates: rows 0-3 in every group (the top of the tree), a
-    # sparse spread of the rest, rows 30-39 never.
-    idx = np.concatenate([np.tile(np.arange(4), (512, 1)),
-                          rng.integers(4, 30, (512, 6))], axis=1)
+    idx = GATHER_INDICES[case](rng)
     table = torch.tensor(rng.normal(0, 1, (n_rows, 2, width)).astype(
         np.float32), requires_grad=True)
     cot = torch.tensor(rng.normal(0, 1e3, idx.shape + (2, width)).astype(
@@ -244,23 +270,53 @@ def test_gather_backward_adds_duplicates_in_fixed_order(dtype):
     runs = torch.bincount(tidx.reshape(-1).long(), minlength=n_rows)
     bound = (runs.clamp_min(1) - 1)[:, None, None] * 2.0 ** -24 * scale
     assert bool(((g1.double() - want).abs() <= bound).all())
-    assert int(runs[0]) == 512 and bool((g1[30:] == 0).all())
+    assert bool((g1[runs == 0].view(torch.int32) == 0).all())   # +0
     assert torch.equal(g1, index_add_ordered(
         n_rows, tidx.reshape(-1), flat_cot))
 
 
+def test_gather_backward_matches_jax_vjp():
+    """``index_add_ordered`` against the JAX package's own gather gradient,
+    ``jax.vjp(lambda t: t[idx], table)``, at a planner level's shape: 64
+    nodes of fan·ncols = 4·8 columns, 16 groups of a 12-wide frontier, each
+    holding the top 4 nodes. XLA adds each row's k terms in f32 (k - 1
+    roundings), the port in f64 rounded once: within k·2^-24 of the row's
+    Σ|terms|."""
+    from nbody_simulation_tpu_torch.ops.traversal import index_add_ordered
+    rng = np.random.default_rng(21)
+    n_rows, width = 64, 32
+    idx = np.concatenate([np.tile(np.arange(4), (16, 1)),
+                          rng.integers(4, 48, (16, 8))], axis=1).astype(
+                              np.int32)
+    table = rng.normal(0, 1, (n_rows, width)).astype(np.float32)
+    cot = rng.normal(0, 1e3, idx.shape + (width,)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: t[jnp.asarray(idx)], jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(cot))
+    got = index_add_ordered(n_rows, torch.tensor(idx.reshape(-1)),
+                            torch.tensor(cot.reshape(-1, width)))
+    runs = np.bincount(idx.reshape(-1), minlength=n_rows)[:, None]
+    scale = np.zeros((n_rows, width))
+    np.add.at(scale, idx.reshape(-1), np.abs(cot.reshape(-1, width)))
+    err = np.abs(got.numpy().astype(np.float64) - np.asarray(want))
+    assert np.all(err <= runs * 2.0 ** -24 * scale)
+    assert np.all(got.numpy()[runs[:, 0] == 0] == 0)
+
+
 def test_segment_sum_runs_only_where_it_can():
     """The segmented sum's kernel takes CUDA tensors only (and counts no
-    launch otherwise); its plain version adds empty runs as +0."""
+    launch otherwise); its plain version takes the same arguments (the
+    sorted key, its permutation, the row count) and adds empty runs as
+    +0."""
     from nbody_simulation_tpu_torch.ops import traversal as tt
     src = torch.ones(6, 3)
+    key = torch.tensor([0, 0, 2, 2, 2, 2])
     perm = torch.arange(6)
-    edges = torch.tensor([0, 2, 2, 6])
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        tt.segment_sum_cuda(src, perm, edges)
+        tt.segment_sum_cuda(src, key, perm, 4)
     assert tt.segment_sum_cuda.launches == 0
-    out = tt.segment_sum_ref(src, perm, edges)
-    assert out.dtype == torch.float32
-    assert out.tolist() == [[2.0] * 3, [0.0] * 3, [4.0] * 3]
+    for k in (key, key.int()):
+        out = tt.segment_sum_ref(src, k, perm, 4)
+        assert out.dtype == torch.float32
+        assert out.tolist() == [[2.0] * 3, [0.0] * 3, [4.0] * 3, [0.0] * 3]
     with pytest.raises(ValueError, match="no segmented sum"):
         tt.index_add_ordered(3, perm.to("meta"), src.to("meta"))

@@ -15,14 +15,21 @@ the public entry points only:
   Σ|a|²: two calls on the same inputs, ``torch.equal`` of the output and
   of the position and mass gradients, and how many entries differ; the
   value+grad time (gradient of the positions, CUDA events over 10 calls
-  after warm-up) and the forward alone; one traced call's device time
-  (each device event once) and device operations;
+  after warm-up, and the host clock over the same) and the forward alone;
+  one traced call's device time (each device event once), device
+  operations and the segmented sum's device time;
 - the P=4 ``bh_distributed_accel_diff`` on the galaxy's first 2^17 rows
   (``LocalMesh(4)`` on the card, the caps of the equivalence contract) at
   θ=50 and θ=0.5 with a random cotangent: the same two-call check, the
-  value+grad time (3 calls), and how many mass-gradient entries lie beyond
+  value+grad time (3 calls), one traced call's device time, operations
+  and segmented-sum time, and how many mass-gradient entries lie beyond
   1e-8 + 2e-4·|g_m| of the single-device ``bh_accel_diff`` gradient, and
-  beyond it between two single-device calls.
+  beyond it between two single-device calls;
+- the segmented sum of the planner's gathers' backward
+  (``ops/traversal.py:segment_sum_cuda``, through the checkout's own
+  interface) at the largest call of the galaxy value+grad and of each
+  distributed one, CUDA events over 20 calls, and ``index_add_ordered``
+  (the sort and the sum) there.
 
 Prints one JSON line per run and, last, one JSON object of all of them;
 ``--out`` also writes it to a file. Exits 1 if a run failed.
@@ -71,6 +78,74 @@ def _two_calls(fn) -> dict:
             zip(("out", "grad_pos", "grad_mass"), first, second)}
 
 
+def _largest_gather(fn) -> tuple:
+    """Run ``fn()`` with the planner's gather backward captured; the
+    largest call's (n_rows, idx, src)."""
+    from nbody_simulation_tpu_torch.ops import traversal
+    calls, real = [], traversal.index_add_ordered
+
+    def capture(n_rows, idx, src):
+        calls.append((n_rows, idx, src))
+        return real(n_rows, idx, src)
+
+    traversal.index_add_ordered = capture
+    try:
+        fn()
+    finally:
+        traversal.index_add_ordered = real
+    return max(calls, key=lambda c: c[2].numel())
+
+
+def _segment_times(n_rows, idx, src) -> dict:
+    """The segmented sum's wrapper alone and ``index_add_ordered`` at one
+    call. Checkouts before the windowed kernel take (perm, edges)."""
+    import torch
+    from nbody_simulation_tpu_torch.ops import traversal as tt
+    flat = src.reshape(src.shape[0], -1).contiguous()
+    if hasattr(tt, "_sorted_segments"):
+        perm, edges = tt._sorted_segments(idx, n_rows)
+        args = (flat, perm, edges)
+    else:
+        key, perm = torch.sort(idx, stable=True)
+        args = (flat, key, perm, n_rows)
+    return {"K": flat.shape[0], "W": flat.shape[1], "rows": n_rows,
+            "index_dtype": str(idx.dtype),
+            "kernel_ms": _timed_ms(lambda: tt.segment_sum_cuda(*args), 20),
+            "index_add_ordered_ms": _timed_ms(
+                lambda: tt.index_add_ordered(n_rows, idx, flat), 20)}
+
+
+def _traced(fn) -> dict:
+    """One traced ``fn()``: device time, device operations, the segmented
+    sum's device time and the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    def on_device(e):
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+    events = prof.key_averages()
+    top = sorted((e for e in events if on_device(e)), key=dev_us,
+                 reverse=True)[:6]
+    # Each device event once; the sum over every key_averages() entry also
+    # counts each kernel launched inside an operator under the operator.
+    return {"device_ms": sum(dev_us(e) for e in prof.events()
+                             if on_device(e)) / 1e3,
+            "all_entries_ms": sum(dev_us(e) for e in events) / 1e3,
+            "device_ops": sum(1 for e in prof.events() if on_device(e)),
+            "segment_ms": sum(dev_us(e) for e in prof.events()
+                              if on_device(e) and "segment_" in e.name) / 1e3,
+            "top": [[e.key[:70], dev_us(e) / 1e3, e.count] for e in top]}
+
+
 def worker() -> dict:
     import numpy as np
     import torch
@@ -102,30 +177,15 @@ def worker() -> dict:
                      "value_grad_ms": _timed_ms(value_grad, 10),
                      "forward_ms": _timed_ms(
                          lambda: tgr.bh_accel_diff(gal.pos, gal.mass), 10)}
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(10):
         value_grad()
-        torch.cuda.synchronize()
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", 0)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    def on_device(e):
-        return str(getattr(e, "device_type", "")).endswith("CUDA")
-    events = prof.key_averages()
-    top = sorted((e for e in events if on_device(e)), key=dev_us,
-                 reverse=True)[:6]
-    # Each device event once; the sum over every key_averages() entry also
-    # counts each kernel launched inside an operator under the operator.
-    res["galaxy"]["trace"] = {
-        "device_ms": sum(dev_us(e) for e in prof.events()
-                         if on_device(e)) / 1e3,
-        "all_entries_ms": sum(dev_us(e) for e in events) / 1e3,
-        "device_ops": sum(1 for e in prof.events() if on_device(e)),
-        "top": [[e.key[:70], dev_us(e) / 1e3, e.count] for e in top]}
+    torch.cuda.synchronize()
+    res["galaxy"]["value_grad_wall_ms"] = (time.perf_counter() - t0) * 100
+    res["galaxy"]["segment_sum"] = _segment_times(*_largest_gather(
+        value_grad))
+    res["galaxy"]["trace"] = _traced(value_grad)
 
     mesh = par.LocalMesh(4, dev)
     g = galaxy(seed=0)
@@ -172,6 +232,8 @@ def worker() -> dict:
             return int(((x - y).abs() > 1e-8 + 2e-4 * y.abs()).sum())
         res[f"distributed_theta{theta}"] = {
             "two_calls": two, "value_grad_ms": vg_ms,
+            "segment_sum": _segment_times(*_largest_gather(dist_call)),
+            "trace": _traced(dist_call),
             "mass_over_vs_single": over(gm, gm1),
             "mass_over_single_vs_single": over(gm2, gm1),
             "mass_entries": gm.numel(),
