@@ -1,0 +1,9 @@
+"""``device.idle_pct.galaxy``: ``device.idle_pct.view`` in a cell whose
+end-to-end metric besides the set-up is the device time a step
+(``step_device_ms``), not the rate; read alike."""
+
+from portbench.lib import manifest
+
+
+def read(ctx):
+    return manifest.load_module("metrics", "device.idle_pct.view").read(ctx)

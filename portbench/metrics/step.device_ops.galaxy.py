@@ -1,0 +1,9 @@
+"""``step.device_ops.galaxy``: ``step.device_ops`` in a cell whose
+end-to-end metric besides the set-up is the device time a step
+(``step_device_ms``), not the rate; read alike."""
+
+from portbench.lib import manifest
+
+
+def read(ctx):
+    return manifest.load_module("metrics", "step.device_ops").read(ctx)
