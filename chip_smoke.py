@@ -92,7 +92,12 @@ with energy telemetry (``--force-path pallas --energy-every 8``) for 32
 steps, plus 8 steps of the galaxy World at θ=0.5 and 4 of the ordered
 all-pairs World (``sym_allpairs=False``), and ``make_sharded_step`` on
 the P=3 galaxy and the P=8 disc; each run zeroes the kernels' launch counts
-just before and reads them just after. Last, the application on the
+just before and reads them just after. ``World.run``'s CUDA graphs
+(``step_graph_phase``, alone with ``--only-step-graphs``): 64 replayed
+steps of the galaxy (Euler and leapfrog) and of the θ=0.5 Plummer cluster,
+with a profiled step and a ``reconfigure`` between batches, bitwise eager
+stepping of the same start (state and frames), with the capture seconds
+and the replay share. Last, the application on the
 galaxy: a run checkpointed at step 40 and resumed for 40 more, bitwise an
 unbroken 80-step run (live rows and checkpoints; the padding rows keep
 their sentinels), with 40 + 40 sweep launches against 80; a run with
@@ -1136,6 +1141,112 @@ def cli_phase(h):
     return out
 
 
+GRAPH_PLAN = (10, 10, 10, "timed", 10, "dt", 10, 10, 3)   # 64 steps
+
+
+def step_graph_phase(h):
+    """``World.run``'s CUDA graphs against eager steps of the same start:
+    the galaxy at θ=50 (Euler, and leapfrog: two force evaluations in one
+    graph) and the 65,536-body Plummer cluster at θ=0.5, the benchmark's
+    configurations. Each world runs ``GRAPH_PLAN``: batches of ``run``
+    with a profiled step (``step_timed``) and a ``reconfigure(dt=0.05)``
+    between them; its twin steps eagerly, one ``World._step`` at a time.
+    ``pos``, ``vel``, ``mass`` and the frame at every batch end are held
+    bitwise, and the sweep's launch count to the steps that ran. Logs the
+    graphs captured, their capture seconds, the replay share, and 32
+    steps' host time each way. Returns the capture seconds per case."""
+    import dataclasses
+
+    import torch
+
+    from nbody_simulation_tpu_torch.config import SimConfig
+    from nbody_simulation_tpu_torch.models import World
+    from nbody_simulation_tpu_torch.models.scenarios import galaxy, plummer
+    from nbody_simulation_tpu_torch.ops import traversal
+    from nbody_simulation_tpu_torch.ops.raster import render_frame
+    from nbody_simulation_tpu_torch.utils.telemetry import Counting
+
+    log, dev = h.log, h.dev
+    t_phase = time.perf_counter()
+    cases = (
+        ("galaxy theta=50", lambda: galaxy(seed=0),
+         SimConfig(force_path="bh")),
+        ("galaxy theta=50 leapfrog", lambda: galaxy(seed=0),
+         SimConfig(force_path="bh", integrator="leapfrog")),
+        ("Plummer theta=0.5", lambda: plummer(N_PLUMMER, seed=0),
+         SimConfig(force_path="bh", theta=0.5, unweighted_leaf_com=False)))
+
+    def eager_run(world, n):
+        for _ in range(n):
+            world.state = world._step(world.state)
+            world.updates += 1
+
+    def sweeps():
+        return (traversal.grouped_sweep.launches
+                + traversal.grouped_sweep.quad_launches)
+
+    def frame(world):
+        st, cfg = world.state, world.config
+        return render_frame(st.pos, st.vel, st.mass, cfg.world_size,
+                            cfg.render_size, cfg.heavy_weight)
+
+    out = {}
+    for label, scenario, cfg in cases:
+        start = scenario().to(dev)
+        graphed, eager = World(start, cfg), World(start, cfg)
+        counting = Counting()
+        for k, item in enumerate(GRAPH_PLAN):
+            if item == "timed":
+                graphed.step_timed(counting)
+                eager.step_timed(counting)
+            elif item == "dt":
+                graphed.reconfigure(dt=0.05)
+                eager.reconfigure(dt=0.05)
+                continue
+            else:
+                before = sweeps()
+                graphed.run(item)
+                per_step = 2 if cfg.integrator == "leapfrog" else 1
+                if sweeps() - before != per_step * item:
+                    raise RuntimeError(
+                        f"step graphs, {label}: {sweeps() - before} sweep "
+                        f"launches counted in {item} steps")
+                eager_run(eager, item)
+            for name in ("pos", "vel", "mass"):
+                if not same_bits(getattr(graphed.state, name),
+                                 getattr(eager.state, name)):
+                    raise RuntimeError(
+                        f"step graphs, {label}: {name} differs from eager "
+                        f"stepping after batch {k} (step {graphed.updates})")
+            if not torch.equal(frame(graphed), frame(eager)):
+                raise RuntimeError(f"step graphs, {label}: the frame differs "
+                                   f"after batch {k}")
+        c = dataclasses.replace(graphed.graph_counts)  # before the timing
+        if graphed.updates != 64 or c.captured < 2 or not c.replayed:
+            raise RuntimeError(f"step graphs, {label}: {graphed.updates} "
+                               f"steps, counts {c}")
+        times = {}
+        for way, go in (("replayed", graphed.run),
+                        ("eager", functools.partial(eager_run, eager))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go(32)
+            torch.cuda.synchronize()
+            times[way] = (time.perf_counter() - t0) / 32 * 1e3
+        log(f"step graphs, {label}: 64 steps bitwise eager stepping (pos, "
+            f"vel, mass, frames at {len(GRAPH_PLAN) - 1} batch ends); "
+            f"{c.captured} graphs captured in {c.capture_s:.4f} s, replay "
+            f"share "
+            f"{c.replay_share:.1%} ({c.replayed} replayed, {c.eager} eager); "
+            f"32 more steps: {times['replayed']:.3f} ms a step replayed, "
+            f"{times['eager']:.3f} ms eager")
+        out[label] = c.capture_s
+        del graphed, eager, start
+        torch.cuda.empty_cache()
+    log(f"phase step graphs: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1198,6 +1309,11 @@ def main() -> int:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s, in "
         "parallel: " + ", ".join(f"{k} {v:.2f} s ({library_path(k).name})"
                                  for k, v in build_s.items()))
+
+    if "--only-step-graphs" in sys.argv[1:]:
+        # A developer's run of the step graphs' phase alone; no result line.
+        step_graph_phase(types.SimpleNamespace(log=log, dev=dev))
+        return 0
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clk_hz = float(card_query("clocks.max.sm").split()[0]) * 1e6
@@ -2120,6 +2236,9 @@ def main() -> int:
     trace_steps("theta=0.5 galaxy", gworld)
     del qworld, gworld
     log(f"phase theta=0.5 paths: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 7c. the Barnes-Hut step as CUDA graphs against eager steps -----------
+    graph_capture_s = step_graph_phase(helpers)
 
     # -- 8. the all-pairs main path with energy telemetry ---------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3255,6 +3374,7 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"distributed BH launches per kernel: {json.dumps(dist_launches)}")
     log(f"distributed CLI: {json.dumps(cli_numbers)}")
+    log(f"step graphs' capture seconds: {json.dumps(graph_capture_s)}")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

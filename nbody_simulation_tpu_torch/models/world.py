@@ -17,11 +17,22 @@ reference's in-place partition (src/bvh_tree.rs:74-76): a re-sort every
 ``resort_every`` steps, tree summaries, planner and sweep on every step.
 Below θ=2 the summaries carry second moments and the sweep is the
 quadrupole kernel K4 (``SimConfig.resolved_multipole``).
+
+On a CUDA device that step is 573-800 small launches, more host time than
+device time, so ``World.run`` replays it as a CUDA graph: one graph for a
+re-sorting step and one for a stale step, each captured the second time its
+variant is due (the first runs eagerly, which warms every lazy
+initialisation up), reading and writing static state buffers. A replay
+runs the eager step's kernels, so a replayed step is bitwise an eager one.
+The CPU, the all-pairs and the direct paths, and ``step_timed``, stay
+eager.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
+import time
 
 import numpy as np
 import torch
@@ -33,10 +44,18 @@ from nbody_simulation_tpu_torch.ops.force import direct_accel
 from nbody_simulation_tpu_torch.ops.integrate import euler_step, leapfrog_step
 from nbody_simulation_tpu_torch.ops.morton import morton_sort_state
 from nbody_simulation_tpu_torch.ops.traversal import (bh_accel_fn,
-                                                      bh_accel_sorted)
+                                                      bh_accel_sorted,
+                                                      grouped_sweep)
 from nbody_simulation_tpu_torch.ops.tree import summarize_sorted
 from nbody_simulation_tpu_torch.state import ParticleState
-from nbody_simulation_tpu_torch.utils.telemetry import PhaseTimer
+from nbody_simulation_tpu_torch.utils.telemetry import (PhaseTimer,
+                                                        StepGraphCounts)
+
+# Host-side launch counters that a step advances. A capture runs the step's
+# Python but launches nothing, so it hands its increments back and every
+# replay adds them: the counters count the kernels that ran.
+LAUNCH_COUNTERS = ((grouped_sweep, "launches"),
+                   (grouped_sweep, "quad_launches"))
 
 
 def make_accel_fn(config: SimConfig):
@@ -73,6 +92,41 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class CudaStepGraph:
+    """One step captured as a CUDA graph; ``replay`` launches it on the
+    current stream. Captures given one ``new_pool()`` share its memory and
+    its side stream: the caching allocator hands a capture the blocks that
+    an earlier one on the same stream freed, so a second graph allocates
+    little or nothing (a new allocation costs a ``cudaMalloc``, most of a
+    first capture's time). That is safe for graphs replayed one at a time
+    on one stream that pass nothing to each other through the pool."""
+
+    device_type = "cuda"
+
+    @staticmethod
+    def new_pool(device: torch.device):
+        return torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
+
+    def __init__(self, body, pool, device: torch.device):
+        handle, side = pool
+        self.graph = torch.cuda.CUDAGraph()
+        caller = torch.cuda.current_stream(device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            # thread_local: the engine's other threads may use the card
+            # while the producer thread captures.
+            self.graph.capture_begin(pool=handle,
+                                     capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                self.graph.capture_end()
+        caller.wait_stream(side)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
 class World:
     """Host-side handle around a device-resident simulation."""
 
@@ -85,6 +139,8 @@ class World:
                if config.force_path == "pallas" else 256)
         self.state = state.pad_to(pad)
         self.updates = 0
+        self.graph_counts = StepGraphCounts()
+        self._drop_graphs()
         self._build_step(config)
 
     def reconfigure(self, **changes) -> None:
@@ -94,6 +150,7 @@ class World:
         from the thread that steps the world (the engine applies it at batch
         boundaries)."""
         self.config = self.config.replace(**changes)
+        self._drop_graphs()
         self._build_step(self.config)
 
     def _build_step(self, config: SimConfig) -> None:
@@ -155,14 +212,109 @@ class World:
 
     # -- fast path ------------------------------------------------------------
     def step(self) -> None:
-        self.state = self._step(self.state)
-        self.updates += 1
+        self.run(1)
 
     def run(self, n_steps: int) -> None:
-        """``n_steps`` steps, launched back to back without a sync."""
+        """``n_steps`` steps, launched back to back without a sync. On the
+        Barnes-Hut path on a CUDA device a step whose variant is captured
+        is one graph replay, and ``self.state`` ends as a copy of the static
+        buffers, made once, that later steps leave as it is."""
+        if not self._graphed():
+            for _ in range(n_steps):
+                self.state = self._step(self.state)
+                self.updates += 1  # per step: the BH path branches on it
+            self.graph_counts.eager += max(n_steps, 0)
+            return
         for _ in range(n_steps):
-            self.state = self._step(self.state)
-            self.updates += 1  # per step: the BH path branches on it
+            self._graph_step()
+            self.updates += 1
+        s = self._static
+        if s is not None and self.state.pos is s.pos:
+            self.state = self._static_holds = self.state.replace(
+                pos=s.pos.clone(), vel=s.vel.clone(), mass=s.mass.clone())
+
+    # -- step graphs ----------------------------------------------------------
+    step_graph = CudaStepGraph
+
+    def _graphed(self) -> bool:
+        return (self.config.force_path == "bh"
+                and self.state.device.type == self.step_graph.device_type)
+
+    def _drop_graphs(self) -> None:
+        """Forget both graphs, their pool and the static buffers: each
+        variant runs eagerly once more before it is captured again."""
+        self._graphs = {}
+        self._warmed = set()
+        self._pool = None
+        self._static = None
+        self._static_holds = None  # the state whose values _static holds
+
+    def _graph_step(self) -> None:
+        st, s = self.state, self._static
+        if s is not None and any(
+                a.shape != b.shape or a.dtype != b.dtype
+                or a.device != b.device
+                for a, b in ((st.pos, s.pos), (st.vel, s.vel),
+                             (st.mass, s.mass))):
+            self._drop_graphs()
+            s = None
+        resort = self.updates % max(self.config.resort_every, 1) == 0
+        if resort not in self._warmed:
+            self._warmed.add(resort)
+            self.state = self._bh_step(st)
+            self.graph_counts.eager += 1
+            return
+        if s is None:
+            s = self._static = ParticleState(
+                torch.empty_like(st.pos), torch.empty_like(st.vel),
+                torch.empty_like(st.mass), st.n_real)
+        if st is not self._static_holds:
+            # Replaced since the last replay: a profiled step, a load, an
+            # assignment, or a variant's eager first step.
+            s.pos.copy_(st.pos)
+            s.vel.copy_(st.vel)
+            s.mass.copy_(st.mass)
+        graph = self._graphs.get(resort)
+        if graph is None:
+            graph = self._graphs[resort] = self._capture()
+        graph.replay()
+        for c, n in graph.launches.items():
+            setattr(*c, getattr(*c) + n)
+        self.state = self._static_holds = st.replace(
+            pos=s.pos, vel=s.vel, mass=s.mass)
+        self.graph_counts.replayed += 1
+
+    def _capture(self):
+        """Capture the step due now (its variant follows ``self.updates``)
+        from and into the static buffers."""
+        s = self._static
+
+        def body():
+            out = self._bh_step(s)
+            for dst, src in ((s.pos, out.pos), (s.vel, out.vel),
+                             (s.mass, out.mass)):
+                if src is not dst:
+                    dst.copy_(src)
+
+        if self._pool is None:
+            self._pool = self.step_graph.new_pool(s.device)
+        before = {c: getattr(*c) for c in LAUNCH_COUNTERS}
+        t0 = time.perf_counter()
+        # A collection inside the capture could free the graphs of a World
+        # kept by a reference cycle, a call that invalidates the capture.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = self.step_graph(body, self._pool, s.device)
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph_counts.capture_s += time.perf_counter() - t0
+        self.graph_counts.captured += 1
+        graph.launches = {c: getattr(*c) - n for c, n in before.items()}
+        for c, n in before.items():
+            setattr(*c, n)
+        return graph
 
     def diagnostics(self) -> dict:
         """Conserved-quantity diagnostics (0-dim tensors; same keys as the
@@ -230,6 +382,7 @@ class World:
                     self.state = euler_step(st, accel, cfg.dt)
                     _sync(dev)
             self.updates += 1
+            self.graph_counts.eager += 1
             return
 
         with PhaseTimer(counting, "build_bvh"):
@@ -264,3 +417,4 @@ class World:
                     st.replace(pos=spos, vel=svel, mass=smass), accel, cfg.dt)
                 _sync(dev)
         self.updates += 1
+        self.graph_counts.eager += 1

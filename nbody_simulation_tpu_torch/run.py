@@ -4,7 +4,8 @@ The counterpart of the reference's main() (reference src/main.rs:81-184)
 and of the JAX package's ``run.py``, with the same parser: a headless
 simulation that consumes the engine's lossy snapshot queue, writes PNG
 frames and prints the once-per-second fps/ups/step/Counting telemetry
-(src/main.rs:148-156 semantics), plus what the reference lacks:
+(src/main.rs:148-156 semantics) and the share of steps replayed as CUDA
+graphs (``models/world.py``), plus what the reference lacks:
 checkpoint and resume, a position-delta recording (render it offline with
 ``python -m nbody_simulation_tpu_torch.render_recording``), an animated
 GIF, and a live browser viewer.
@@ -214,7 +215,7 @@ def simulate(argv=None):
                 break
             last = snap
             kept += 1
-            meter.frame(snap.step, snap.counting)
+            meter.frame(snap.step, snap.counting, world.graph_counts)
             if args.out and args.frame_every and kept % args.frame_every == 0:
                 save_png(args.out / f"frame_{snap.step:08d}.png", snap.frame)
             if recorder is not None and snap.pos is not None:

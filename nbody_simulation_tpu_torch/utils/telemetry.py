@@ -33,6 +33,23 @@ class Counting:
                 f"post_calculations: {self.post_calculations} }}")
 
 
+@dataclasses.dataclass
+class StepGraphCounts:
+    """How a ``World``'s steps ran: ``replayed`` as one CUDA graph launch
+    each, or ``eager``, op by op (every step off the Barnes-Hut path or off
+    the card, every profiled step, and each graph's first step); the graphs
+    ``captured`` and the host seconds their captures took."""
+    replayed: int = 0
+    eager: int = 0
+    captured: int = 0
+    capture_s: float = 0.0
+
+    @property
+    def replay_share(self) -> float:
+        steps = self.replayed + self.eager
+        return self.replayed / steps if steps else 0.0
+
+
 class PhaseTimer:
     """Context-manager accumulator: ``with timer(counting, 'build_bvh'): ...``"""
 
@@ -153,7 +170,8 @@ class RateMeter:
         self.last_updates = 0
         self._t0 = time.perf_counter()
 
-    def frame(self, updates: int, counting: Counting | None = None) -> None:
+    def frame(self, updates: int, counting: Counting | None = None,
+              graphs: StepGraphCounts | None = None) -> None:
         self.frames += 1
         now = time.perf_counter()
         if now - self._t0 >= self.interval:
@@ -161,6 +179,11 @@ class RateMeter:
             self.emit(f"step: {updates}")
             if counting is not None:
                 self.emit(repr(counting))
+            if graphs is not None:
+                self.emit(f"replayed: {graphs.replay_share:.1%} of "
+                          f"{graphs.replayed + graphs.eager} steps, "
+                          f"{graphs.captured} graphs captured in "
+                          f"{graphs.capture_s:.3f} s")
             self.frames = 0
             self.last_updates = updates
             self._t0 = now
