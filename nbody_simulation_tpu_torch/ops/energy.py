@@ -178,10 +178,16 @@ def total_energy(state, softening2: float = 1e-3) -> torch.Tensor:
 
 
 def bh_total_energy(state, config) -> torch.Tensor:
-    """Approximate E = KE + U from the Barnes-Hut planned source columns:
-    O(N·C) instead of the exact sweep's O(N²/2), with the same sort, build
-    and plan as the force path, the planned columns fed to the counterpart
-    potential (monopole) instead of the force law."""
+    """Approximate E = KE + U, U from ``bh_potential_energy``."""
+    u = bh_potential_energy(state, config)
+    return kinetic_energy(state.vel, state.mass) + u
+
+
+def bh_potential_energy(state, config) -> torch.Tensor:
+    """Approximate U from the Barnes-Hut planned source columns: O(N·C)
+    instead of the exact sweep's O(N²/2), with the same sort, build and plan
+    as the force path, the planned columns fed to the counterpart potential
+    (monopole) instead of the force law."""
     from nbody_simulation_tpu_torch.ops.traversal import bh_plan_sources
     from nbody_simulation_tpu_torch.ops.tree import build_tree
 
@@ -198,11 +204,10 @@ def bh_total_energy(state, config) -> torch.Tensor:
     src_x, src_y, src_m = bh_plan_sources(tree, cfg.theta, f, l,
                                           plan_leaves=pl_, multipole=1)
     g = n_leaves // pl_
-    u = bh_potential_from_columns(tree.leaf_mass.reshape(g, pl_ * s),
-                                  tree.leaf_pos.reshape(g, pl_ * s, 2),
-                                  src_x, src_y, src_m,
-                                  softening2=cfg.softening2)
-    return kinetic_energy(state.vel, state.mass) + u
+    return bh_potential_from_columns(tree.leaf_mass.reshape(g, pl_ * s),
+                                     tree.leaf_pos.reshape(g, pl_ * s, 2),
+                                     src_x, src_y, src_m,
+                                     softening2=cfg.softening2)
 
 
 def bh_potential_from_columns(tgt_mass: torch.Tensor, tgt_pos: torch.Tensor,

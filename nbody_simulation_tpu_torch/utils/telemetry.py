@@ -116,7 +116,10 @@ class EnergyMeter:
     ``parallel.bh_distributed_total_energy`` with the world's seam stages,
     O(N·C/P) per shard, and "exact" the ring of the potential kernel
     (``parallel.sharded_total_energy``), O(N²/P). Samples are kept in
-    ``samples`` as (step, energy).
+    ``samples`` as (step, energy), and the potential part of each in
+    ``potentials`` as (step, U): on the galaxy E is almost all kinetic, so
+    only U itself shows the pair sweep's accuracy. U is read back after E,
+    whose readback has already waited for the device.
     """
 
     def __init__(self, every: int, emit=print, softening2: float = 1e-3,
@@ -129,6 +132,7 @@ class EnergyMeter:
         self.method = method
         self.e0: float | None = None
         self.samples: list[tuple[int, float]] = []
+        self.potentials: list[tuple[int, float]] = []
         self._last = None
 
     def __call__(self, world) -> None:
@@ -136,27 +140,34 @@ class EnergyMeter:
         if self._last is not None and step - self._last < self.every:
             return
         self._last = step
+        st = world.state
         if getattr(world, "mesh", None) is not None:
             from nbody_simulation_tpu_torch.parallel import (
                 bh_distributed_total_energy, sharded_total_energy)
             if self.method == "bh":
-                e = float(bh_distributed_total_energy(
-                    world.state, world.mesh, world.config,
-                    extra_pairs=getattr(world, "_extra", ()))["total_energy"])
+                parts = bh_distributed_total_energy(
+                    st, world.mesh, world.config,
+                    extra_pairs=getattr(world, "_extra", ()))
             else:
-                e = float(sharded_total_energy(
-                    world.state, world.mesh,
-                    softening2=self.softening2)["total_energy"])
-        elif self.method == "bh":
-            from nbody_simulation_tpu_torch.ops.energy import bh_total_energy
-            e = float(bh_total_energy(world.state, world.config))
+                parts = sharded_total_energy(st, world.mesh,
+                                             softening2=self.softening2)
+            e, u = parts["total_energy"], parts["potential_energy"]
         else:
-            from nbody_simulation_tpu_torch.ops.energy import total_energy
-            e = float(total_energy(world.state, softening2=self.softening2))
+            from nbody_simulation_tpu_torch.ops import energy
+            if self.method == "bh":
+                u = energy.bh_potential_energy(st, world.config)
+                e = energy.kinetic_energy(st.vel, st.mass) + u
+            else:
+                ke = energy.kinetic_energy(st.vel, st.mass)
+                u = energy.potential_energy(st.pos, st.mass,
+                                            softening2=self.softening2)
+                e = ke + u
+        e, u = float(e), float(u)
         if self.e0 is None:
             self.e0 = e
         drift = abs(e - self.e0) / max(abs(self.e0), 1e-30)
         self.samples.append((step, e))
+        self.potentials.append((step, u))
         self.emit(f"energy: step {step} E={e:.6e} |dE/E0|={drift:.3e}")
 
 
