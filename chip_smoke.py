@@ -97,7 +97,13 @@ just before and reads them just after. ``World.run``'s CUDA graphs
 steps of the galaxy (Euler and leapfrog) and of the θ=0.5 Plummer cluster,
 with a profiled step and a ``reconfigure`` between batches, bitwise eager
 stepping of the same start (state and frames), with the capture seconds
-and the replay share. Last, the application on the
+and the replay share. The engine's snapshot in flight
+(``engine_overlap_phase``): a snapshot's enqueue returns before a sleep
+given to the card ends; on the galaxy and the θ=0.5 Plummer cluster every
+frame of 20 batches equals the synchronous render of its state, and the
+engine-view loop runs in turns synchronously and overlapped, with its
+ups, snapshot counts and the card's idle time a batch. Last, the
+application on the
 galaxy: a run checkpointed at step 40 and resumed for 40 more, bitwise an
 unbroken 80-step run (live rows and checkpoints; the padding rows keep
 their sentinels), with 40 + 40 sweep launches against 80; a run with
@@ -1247,6 +1253,238 @@ def step_graph_phase(h):
     return out
 
 
+OVERLAP_BATCHES = 20      # batches whose frames are held to their states
+OVERLAP_SEGMENT_S = 3.0   # one steady run of the engine-view loop
+OVERLAP_TRACE_BATCHES = 4  # profiled after it
+
+
+class _ProfileGate:
+    """An engine's ``on_batch`` that, when asked, stops the producer at a
+    batch end after a device sync while the calling thread starts, then
+    stops, a CUDA-only profiler ``batches`` later (the profiler is never
+    started or stopped while the producer launches work)."""
+
+    def __init__(self):
+        import threading
+        self.k, self.at = 0, ()
+        self.asked, self.done = threading.Event(), threading.Event()
+
+    def __call__(self, world) -> None:
+        import torch
+        self.k += 1
+        if self.k in self.at:
+            torch.cuda.synchronize()
+            self.asked.set()
+            if not self.done.wait(timeout=300):
+                raise RuntimeError("the profiler did not start or stop")
+            self.done.clear()
+
+    def profile(self, batches: int):
+        import torch
+        self.at = (self.k + 2, self.k + 2 + batches)
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        for act in (prof.__enter__, lambda: prof.__exit__(None, None, None)):
+            if not self.asked.wait(timeout=300):
+                raise RuntimeError("the producer did not reach the batch")
+            self.asked.clear()
+            act()
+            self.done.set()
+        return prof
+
+
+def _idle_per_batch(prof, batches: float):
+    """(idle ms a batch, ms a batch in gaps over 0.5 ms) between the first
+    and last device events of a CUDA-only profile, each event once."""
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if str(e.device_type()).endswith("CUDA"))
+    busy, end, wide = 0, None, 0
+    for s, e in spans:
+        if end is not None and s > end and s - end > 500_000:
+            wide += s - end
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    idle = (spans[-1][1] - spans[0][0]) - busy
+    return idle / 1e6 / batches, wide / 1e6 / batches
+
+
+def engine_overlap_phase(h):
+    """The engine's snapshot in flight on the card (``runtime/engine.py``):
+    the enqueue of a snapshot returns before a 0.2-s sleep the card was
+    given ends (nothing in the render or its copy waits for the device);
+    on the galaxy at θ=50 and the 65,536-body Plummer cluster at θ=0.5
+    (the benchmark's configurations) every frame of ``OVERLAP_BATCHES``
+    batches, taken by a consumer thread, equals ``render_frame`` of the
+    state at its batch end, copied by the ``on_batch`` hook, with the same
+    step; then the engine-view loop (10 steps a snapshot, queue depth 2, a
+    snapshot whenever the queue has room, a consumer popping each) in
+    turns as a synchronous loop (each snapshot finished as it is enqueued,
+    the order before the overlap) and as the engine runs it, for
+    ``OVERLAP_SEGMENT_S`` each: ups from the frames received, the
+    snapshot counts of that steady stretch (at least 99% overlapped), then
+    the card's idle time a batch from a CUDA-only profile of
+    ``OVERLAP_TRACE_BATCHES`` batches after it. Returns the numbers by case."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from nbody_simulation_tpu_torch.config import SimConfig
+    from nbody_simulation_tpu_torch.models import World
+    from nbody_simulation_tpu_torch.models.scenarios import galaxy, plummer
+    from nbody_simulation_tpu_torch.ops.raster import render_frame
+    from nbody_simulation_tpu_torch.runtime.engine import Engine
+    from nbody_simulation_tpu_torch.utils.telemetry import SnapshotCounts
+
+    class SyncEngine(Engine):
+        """The loop before the snapshot in flight: each snapshot finished
+        as soon as it is enqueued, before the next batch."""
+
+        def _snapshot(self):
+            super()._snapshot()
+            self._finish_snapshot()
+
+    log, dev = h.log, h.dev
+    t_phase = time.perf_counter()
+    cases = (("galaxy theta=50", lambda: galaxy(seed=0),
+              SimConfig(force_path="bh")),
+             ("Plummer theta=0.5", lambda: plummer(N_PLUMMER, seed=0),
+              SimConfig(force_path="bh", theta=0.5,
+                        unweighted_leaf_com=False)))
+
+    def frame_of(world, pos, vel, mass):
+        cfg = world.config
+        return render_frame(pos, vel, mass, cfg.world_size, cfg.render_size,
+                            cfg.heavy_weight).cpu().numpy()
+
+    def consume(eng, got):
+        while (snap := eng.next_snapshot(timeout=120)) is not None:
+            got.append((time.monotonic(), snap))
+
+    out = {}
+    for label, scenario, cfg in cases:
+        world = World(scenario().to(dev), cfg)
+        world.run(40)   # both step graphs captured
+        # -- the enqueue does not wait for the card
+        eng = Engine(world, queue_depth=4)
+        eng._snapshot()
+        eng._finish_snapshot()   # the host buffers made, the raster warm
+        eng.queue.pop(0.0)
+        torch.cuda.synchronize()
+        cycles = int(0.2 * float(card_query("clocks.max.sm").split()[0])
+                     * 1e6)
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        eng._snapshot()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        pending = not eng._in_flight.event.query()
+        eng._finish_snapshot()
+        snap = eng.next_snapshot(timeout=0)
+        st = world.state
+        if not pending or enqueue_ms > 100:
+            raise RuntimeError(
+                f"engine overlap, {label}: the snapshot's enqueue took "
+                f"{enqueue_ms:.2f} ms behind a 0.2-s sleep on the card "
+                f"(copy still pending after it: {pending})")
+        if snap is None or (snap.frame != frame_of(world, st.pos, st.vel,
+                                                   st.mass)).any():
+            raise RuntimeError(f"engine overlap, {label}: the frame of the "
+                               "snapshot behind the sleep differs")
+        del eng
+        # -- every frame is the synchronous render of its state
+        kept = {}
+
+        def hook(w):
+            s = w.state
+            kept[w.updates] = (s.pos.clone(), s.vel.clone(), s.mass.clone())
+
+        eng = Engine(world, queue_depth=OVERLAP_BATCHES + 2,
+                     snapshot_interval=0.0, steps_per_snapshot=10,
+                     on_batch=hook)
+        got = []
+        consumer = threading.Thread(target=consume, args=(eng, got),
+                                    daemon=True)
+        consumer.start()
+        eng.start(max_steps=world.updates + 10 * OVERLAP_BATCHES)
+        eng.join(timeout=300)
+        eng.stop()
+        consumer.join(timeout=120)
+        kept[world.updates] = (world.state.pos, world.state.vel,
+                               world.state.mass)
+        steps = [s.step for _, s in got]
+        if consumer.is_alive() or steps != sorted(steps) \
+                or len(got) != OVERLAP_BATCHES + 1:
+            raise RuntimeError(f"engine overlap, {label}: frames of steps "
+                               f"{steps}")
+        for _, s in got:
+            if (s.frame != frame_of(world, *kept[s.step])).any():
+                raise RuntimeError(f"engine overlap, {label}: the frame of "
+                                   f"step {s.step} differs from the render "
+                                   "of its state")
+        c = eng.snapshot_counts
+        log(f"engine overlap, {label}: {len(got)} frames (steps {steps[0]}-"
+            f"{steps[-1]}) equal the synchronous render of their states, "
+            f"pixel for pixel; snapshot counts {c}; the enqueue behind a "
+            f"0.2-s sleep on the card returned in {enqueue_ms:.3f} ms")
+        del kept, got, eng
+        # -- the engine-view loop, synchronous and overlapped in turns
+        rows = []
+        for kind in ("sync", "overlap", "sync", "overlap"):
+            cls = SyncEngine if kind == "sync" else Engine
+            gate = _ProfileGate()
+            eng = cls(world, queue_depth=2, snapshot_interval=0.0,
+                      steps_per_snapshot=10, profile_every=50,
+                      on_batch=gate)
+            got = []
+            consumer = threading.Thread(target=consume, args=(eng, got),
+                                        daemon=True)
+            consumer.start()
+            eng.start()
+            time.sleep(0.5)
+            n0, c0 = len(got), dataclasses.replace(eng.snapshot_counts)
+            time.sleep(OVERLAP_SEGMENT_S)
+            n1 = len(got)
+            c1 = dataclasses.replace(eng.snapshot_counts)
+            prof = gate.profile(OVERLAP_TRACE_BATCHES)
+            eng.stop()
+            consumer.join(timeout=120)
+            wall = got[n1 - 1][0] - got[n0][0]
+            ups = (got[n1 - 1][1].step - got[n0][1].step) / wall
+            steady = SnapshotCounts(
+                c1.overlapped - c0.overlapped, c1.flushed - c0.flushed,
+                c1.wait_s - c0.wait_s, c1.pack_s - c0.pack_s)
+            idle, wide = _idle_per_batch(prof, OVERLAP_TRACE_BATCHES)
+            del prof
+            done = steady.overlapped + steady.flushed
+            share = steady.overlapped / max(done, 1)
+            if kind == "overlap" and share < 0.99:
+                raise RuntimeError(f"engine overlap, {label}: {share:.1%} of "
+                                   f"the steady run's snapshots overlapped")
+            rows.append({"kind": kind, "ups": ups, "overlapped": share,
+                         "wait_share": steady.wait_s / wall,
+                         "pack_ms": steady.pack_s / max(done, 1) * 1e3,
+                         "idle_ms_per_batch": idle,
+                         "gaps_over_0.5ms_per_batch": wide})
+            log(f"engine overlap, {label}, {kind}: ups {ups:.2f}; steady "
+                f"snapshots {done}, {share:.1%} overlapped, waited "
+                f"{steady.wait_s:.3f} s ({steady.wait_s / wall:.1%} of "
+                f"{wall:.2f} s), packing {rows[-1]['pack_ms']:.2f} ms a "
+                f"frame; card idle {idle:.3f} ms a batch ({wide:.3f} ms of "
+                f"it in gaps over 0.5 ms) over {OVERLAP_TRACE_BATCHES} "
+                "traced batches")
+            del eng, got
+        out[label] = rows
+        del world
+        torch.cuda.empty_cache()
+    log(f"phase engine overlap: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2239,6 +2477,9 @@ def main() -> int:
 
     # -- 7c. the Barnes-Hut step as CUDA graphs against eager steps -----------
     graph_capture_s = step_graph_phase(helpers)
+
+    # -- 7d. the engine's snapshot in flight ----------------------------------
+    overlap = engine_overlap_phase(helpers)
 
     # -- 8. the all-pairs main path with energy telemetry ---------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3375,6 +3616,7 @@ def main() -> int:
     log(f"distributed BH launches per kernel: {json.dumps(dist_launches)}")
     log(f"distributed CLI: {json.dumps(cli_numbers)}")
     log(f"step graphs' capture seconds: {json.dumps(graph_capture_s)}")
+    log(f"engine overlap: {json.dumps(overlap)}")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -358,6 +358,9 @@ class World:
         cfg = self.config
         st = self.state
         dev = st.device
+        # The phases time this step alone: work still queued (the engine
+        # enqueues a batch ahead of its host work) finishes first.
+        _sync(dev)
         if cfg.force_path != "bh":
             with PhaseTimer(counting, "sum_gravity"):
                 accel = self._accel(st.pos, st.mass)

@@ -121,7 +121,8 @@ def render_frame_sparse(pos: torch.Tensor, vel: torch.Tensor,
 
     One particle lights at most one pixel, so cap ≥ the real particle count
     is exact. The device→host copy is proportional to the lit pixels, not
-    the 6.25 MB framebuffer.
+    the 6.25 MB framebuffer. The output's size is fixed, so nothing here
+    waits for the device.
     """
     frame = render_frame(pos, vel, mass, world_size=world_size,
                          render_size=render_size, heavy_weight=heavy_weight)
@@ -130,13 +131,10 @@ def render_frame_sparse(pos: torch.Tensor, vel: torch.Tensor,
     packed = (flat[:, 0] | (flat[:, 1] << 8) | (flat[:, 2] << 16)
               | (flat[:, 3] << 24))
     packed = torch.where(packed >= 2**31, packed - 2**32, packed)
-    lit_idx = torch.nonzero(flat[:, 3] > 0).flatten()[:cap]
-    k = lit_idx.shape[0]
-    idx = torch.full((cap,), npix, dtype=torch.int32, device=pos.device)
-    vals = torch.zeros(cap, dtype=torch.int32, device=pos.device)
-    idx[:k] = lit_idx.to(torch.int32)
-    vals[:k] = packed[lit_idx].to(torch.int32)
-    return idx, vals
+    lit_idx = torch.nonzero_static(flat[:, 3] > 0, size=cap,
+                                   fill_value=npix).flatten()
+    vals = torch.where(lit_idx < npix, packed[lit_idx.clamp_max(npix - 1)], 0)
+    return lit_idx.to(torch.int32), vals.to(torch.int32)
 
 
 def sparse_to_frame(idx, vals, render_size: int = 1250) -> np.ndarray:

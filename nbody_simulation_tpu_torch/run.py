@@ -253,8 +253,11 @@ def simulate(argv=None):
                         world.updates)
         emit(f"checkpoint: {args.checkpoint} @ step {world.updates}")
     d = world.diagnostics()
+    c = engine.snapshot_counts
     emit(f"done: {world.updates - start_step} steps, "
          f"{kept} snapshots kept, {engine.dropped} dropped, "
+         f"{c.overlapped} overlapped, {c.flushed} flushed (waited "
+         f"{c.wait_s:.3f} s, packed {c.pack_s:.3f} s), "
          f"mass {float(d['total_mass']):.1f}, "
          f"ke {float(d['kinetic_energy']):.6e}")
     return world

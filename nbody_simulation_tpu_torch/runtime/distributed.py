@@ -127,6 +127,11 @@ class DistributedEngine(Engine):
             return not paused
         return super()._snapshot_due(now, paused)
 
+    def _snapshot(self) -> None:
+        # Synchronous, with nothing left in flight: the render is a
+        # collective that every rank enters at the same batch.
+        self.queue.try_push(self._render_snapshot())
+
     def _render_snapshot(self) -> bytes:
         w: DistributedWorld = self.world
         cfg = w.config

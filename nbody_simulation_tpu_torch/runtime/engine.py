@@ -10,6 +10,16 @@ dumper, test) pops at its own pace. A full queue skips the render+readback
 entirely — the same backpressure the reference gets from `!tx.is_full()`
 (src/main.rs:136-139), but saving the render work as well.
 
+One snapshot is in flight at a time. At a batch end the producer only
+enqueues it: the raster, a copy of its output (and of the positions, with
+``include_particles``) into host buffers, pinned on a card, and an event
+after the copy. It then enqueues the next batch's steps, and only after
+that waits on the event and rebuilds, packs and pushes the frame, so the
+host does that work while the card runs the next steps. A pause, a
+reconfigure, the end and a stop finish the snapshot in flight before they
+act. On the CPU the copy is complete when it is made and the same loop
+runs.
+
 Snapshot wire format (little-endian), the JAX package's:
   u64 step | f64 build_bvh | f64 sum_gravity | f64 post_calculations |
   u32 height | u32 width | u32 n_particles | RGBA8 frame bytes |
@@ -28,6 +38,7 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from nbody_simulation_tpu_torch.config import SimConfig
 from nbody_simulation_tpu_torch.models.world import World
@@ -35,7 +46,8 @@ from nbody_simulation_tpu_torch.ops.raster import (render_frame,
                                                    render_frame_sparse,
                                                    sparse_to_frame)
 from nbody_simulation_tpu_torch.runtime.queue import SnapshotQueue
-from nbody_simulation_tpu_torch.utils.telemetry import Counting
+from nbody_simulation_tpu_torch.utils.telemetry import (Counting,
+                                                        SnapshotCounts)
 
 _HDR = struct.Struct("<Qdddiii")
 
@@ -70,6 +82,20 @@ class Snapshot:
         return cls(step, Counting(b, s, p), frame, pos)
 
 
+@dataclass
+class _InFlight:
+    """A snapshot enqueued on the device: the step and phase seconds at its
+    batch end, the host buffers its copy fills (sparse ``idx, vals`` or the
+    dense frame, then the positions with ``include_particles``) and the
+    event after that copy (None on the CPU)."""
+    step: int
+    counting: Counting
+    render_size: int
+    sparse: bool
+    host: list
+    event: object
+
+
 class Engine:
     """Physics thread + lossy snapshot queue around a World."""
 
@@ -79,9 +105,10 @@ class Engine:
                  profile_every: int = 50, on_batch=None):
         """``snapshot_interval``: minimum seconds between rendered snapshots.
         The reference gets ups≫fps for free (render on its own thread); here
-        the frame readback shares the producer thread (see _render_snapshot),
-        so the interval bounds how much of the step budget rendering can
-        take. 0 = render whenever the queue has room, exactly flume-style.
+        the frame's rebuild and packing share the producer thread (see
+        _finish_snapshot), so the interval bounds how much of the host's
+        time rendering can take. 0 = render whenever the queue has room,
+        exactly flume-style.
 
         ``profile_every``: every k-th batch, one step runs in profile mode
         (``World.step_timed``: a device sync after each phase) so the
@@ -113,6 +140,9 @@ class Engine:
         self._counts_base = (0, 0)  # (pushed, dropped) from retired queues
         self.steps_per_snapshot = steps_per_snapshot
         self.counting = Counting()
+        self.snapshot_counts = SnapshotCounts()
+        self._in_flight: _InFlight | None = None
+        self._host: list | None = None  # the buffers a snapshot's copy fills
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -169,39 +199,83 @@ class Engine:
         old.close()
 
     # -- producer -------------------------------------------------------------
-    def _render_snapshot(self) -> bytes:
-        """Render on device, read back, pack. Runs on the producer thread,
-        between steps; the sparse encoding keeps the copy proportional to
+    def _snapshot(self) -> None:
+        """Enqueue the current state's snapshot without waiting for the
+        device: the render, then the copy of its output into the host
+        buffers and an event after it. ``_finish_snapshot`` waits, packs
+        and pushes it. The sparse encoding keeps the copy proportional to
         lit pixels instead of the full framebuffer (ops/raster.py)."""
         cfg = self.world.config
         st = self.world.state
         npix = cfg.render_size * cfg.render_size
         cap = min(-(-st.n_real // 128) * 128, npix)
-        if cap * 8 < npix * 4:
-            idx, vals = render_frame_sparse(
+        sparse = cap * 8 < npix * 4
+        if sparse:
+            out = render_frame_sparse(
                 st.pos, st.vel, st.mass, cap=cap, world_size=cfg.world_size,
                 render_size=cfg.render_size, heavy_weight=cfg.heavy_weight)
-            frame = sparse_to_frame(idx, vals, cfg.render_size)
         else:
-            frame = render_frame(
+            out = (render_frame(
                 st.pos, st.vel, st.mass, world_size=cfg.world_size,
                 render_size=cfg.render_size,
-                heavy_weight=cfg.heavy_weight).cpu().numpy()
-        pos = (st.pos[:st.n_real].cpu().numpy()
-               if self.include_particles else None)
-        return Snapshot(self.world.updates, self.counting.copy(),
-                        frame, pos).pack()
+                heavy_weight=cfg.heavy_weight),)
+        if self.include_particles:
+            out += (st.pos[:st.n_real],)
+        card = st.pos.device.type == "cuda"
+        if self._host is None or [(h.shape, h.dtype) for h in self._host] \
+                != [(t.shape, t.dtype) for t in out]:
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=card)
+                          for t in out]
+        for h, t in zip(self._host, out):
+            h.copy_(t, non_blocking=card)
+        event = None
+        if card:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(st.pos.device))
+        self._in_flight = _InFlight(self.world.updates, self.counting.copy(),
+                                    cfg.render_size, sparse, self._host,
+                                    event)
+
+    def _finish_snapshot(self, overlapped: bool = False) -> None:
+        """Wait for the snapshot in flight, if there is one, rebuild and
+        pack its frame on the host and push it. ``overlapped``: the next
+        batch's steps were enqueued first. The host buffers are read here,
+        before the next ``_snapshot`` fills them again."""
+        snap, self._in_flight = self._in_flight, None
+        if snap is None:
+            return
+        t0 = time.perf_counter()
+        if snap.event is not None:
+            snap.event.synchronize()
+        t1 = time.perf_counter()
+        if snap.sparse:
+            frame = sparse_to_frame(snap.host[0], snap.host[1],
+                                    snap.render_size)
+        else:
+            frame = snap.host[0].numpy()
+        pos = snap.host[-1].numpy() if self.include_particles else None
+        data = Snapshot(snap.step, snap.counting, frame, pos).pack()
+        counts = self.snapshot_counts
+        counts.wait_s += t1 - t0
+        counts.pack_s += time.perf_counter() - t1
+        if overlapped:
+            counts.overlapped += 1
+        else:
+            counts.flushed += 1
+        self.queue.try_push(data)
 
     def _snapshot_due(self, now: float, paused: bool) -> bool:
         """Whether the producer should render a snapshot this batch.
 
         The default gate is LOCAL and nondeterministic (queue fullness +
         wall clock) — exactly the reference's lossy try_send economics
-        (src/main.rs:136-139).
+        (src/main.rs:136-139). A snapshot in flight holds the slot it will
+        take.
         """
         interval = (max(self.snapshot_interval, 0.1) if paused
                     else self.snapshot_interval)
-        return (not self.queue.is_full()
+        held = len(self.queue) + (self._in_flight is not None)
+        return (held < self.queue.capacity
                 and now - self._last_snap_t >= interval)
 
     def _physics_loop(self, max_steps: int | None) -> None:
@@ -218,16 +292,22 @@ class Engine:
                         break
                 with self._cfg_lock:
                     pending, self._pending_cfg = self._pending_cfg, {}
+                paused = (self._paused.is_set()
+                          and not self._step_once.is_set())
+                if pending or paused:
+                    # The snapshot in flight goes out before either acts.
+                    self._finish_snapshot()
                 if pending:
                     old_rs = self.world.config.render_size
                     self.world.reconfigure(**pending)
                     if self.world.config.render_size != old_rs:
                         self._rebuild_queue()
-                if self._paused.is_set() and not self._step_once.is_set():
+                if paused:
                     # Paused: keep serving the current frame, burn no steps.
                     now = time.monotonic()
                     if self._snapshot_due(now, paused=True):
-                        self.queue.try_push(self._render_snapshot())
+                        self._snapshot()
+                        self._finish_snapshot()
                         self._last_snap_t = now
                     self._stop.wait(0.05)
                     continue
@@ -241,6 +321,8 @@ class Engine:
                     batch -= 1
                 if batch > 0:
                     self.world.run(batch)
+                # The last batch's snapshot, while the card runs this one.
+                self._finish_snapshot(overlapped=True)
                 if (self.nan_check_every
                         and self.world.updates % self.nan_check_every == 0):
                     self.world.assert_finite()  # raises → surfaced by stop()
@@ -248,24 +330,27 @@ class Engine:
                     self.on_batch(self.world)
                 now = time.monotonic()
                 if self._snapshot_due(now, paused=False):
-                    self.queue.try_push(self._render_snapshot())
+                    self._snapshot()
                     self._last_snap_t = now
         except BaseException as e:  # surfaced via .error / stop()
             self._error = e
         finally:
-            if self._error is None:
-                # Push the END state so a bounded run's last frame is the
-                # final step, not whatever the lossy cadence last caught
-                # (the reference never ends, so it never has this problem).
-                # try_push is lossy — if the consumer left the queue full,
-                # drop the OLDEST queued frame to make room: the end state
-                # must win over a stale intermediate.
-                try:
-                    snap = self._render_snapshot()
+            try:
+                self._finish_snapshot()
+                if self._error is None:
+                    # Push the END state so a bounded run's last frame is
+                    # the final step, not whatever the lossy cadence last
+                    # caught (the reference never ends, so it never has
+                    # this problem). try_push is lossy — if the consumer
+                    # left the queue full, drop the OLDEST queued frame to
+                    # make room: the end state must win over a stale
+                    # intermediate.
                     if self.queue.is_full():
                         self.queue.pop(0.0)
-                    self.queue.try_push(snap)
-                except Exception as e:  # surfaced by stop()
+                    self._snapshot()
+                    self._finish_snapshot()
+            except Exception as e:  # surfaced by stop()
+                if self._error is None:
                     self._error = e
             self.queue.close()
 
@@ -305,6 +390,10 @@ class Engine:
             self._thread.join(timeout=30)
         if self._error is not None:
             raise self._error
+
+    @property
+    def pushed(self) -> int:
+        return self._counts_base[0] + self.queue.pushed
 
     @property
     def dropped(self) -> int:

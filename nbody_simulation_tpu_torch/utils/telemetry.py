@@ -50,6 +50,19 @@ class StepGraphCounts:
         return self.replayed / steps if steps else 0.0
 
 
+@dataclasses.dataclass
+class SnapshotCounts:
+    """How an ``Engine`` finished its snapshots: ``overlapped``, after the
+    next batch's steps were enqueued, so that the host rebuilt the frame
+    while the card ran them; ``flushed``, at a pause, a reconfigure, the
+    end or a stop; the host seconds ``wait_s`` blocked on a snapshot's copy
+    and ``pack_s`` rebuilding and packing frames."""
+    overlapped: int = 0
+    flushed: int = 0
+    wait_s: float = 0.0
+    pack_s: float = 0.0
+
+
 class PhaseTimer:
     """Context-manager accumulator: ``with timer(counting, 'build_bvh'): ...``"""
 
