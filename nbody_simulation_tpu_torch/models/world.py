@@ -25,16 +25,17 @@ variant is due (the first runs eagerly, which warms every lazy
 initialisation up), reading and writing static state buffers. A replay
 runs the eager step's kernels, so a replayed step is bitwise an eager one.
 The CPU, the all-pairs and the direct paths, and ``step_timed``, stay
-eager.
+eager. ``step_timed`` runs the same step as the others, with a timing hook
+around each phase that is a no-op everywhere else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import time
 
-import numpy as np
 import torch
 
 from nbody_simulation_tpu_torch.config import DEFAULT_CONFIG, SimConfig
@@ -140,6 +141,7 @@ class World:
         self.state = state.pad_to(pad)
         self.updates = 0
         self.graph_counts = StepGraphCounts()
+        self._timing = None  # (Counting, device) inside step_timed
         self._drop_graphs()
         self._build_step(config)
 
@@ -156,59 +158,78 @@ class World:
     def _build_step(self, config: SimConfig) -> None:
         if config.force_path == "bh":
             self._step = self._bh_step
-            self._accel = bh_accel_fn(config)
             return
         accel = make_accel_fn(config)
-        self._accel = accel
-        if config.integrator == "leapfrog":
-            self._step = lambda st: leapfrog_step(st, accel, config.dt)
-        else:
-            self._step = lambda st: euler_step(
-                st, accel(st.pos, st.mass), config.dt)
 
-    def _summaries(self, spos: torch.Tensor, smass: torch.Tensor):
-        cfg = self.config
-        return summarize_sorted(spos, smass, leaf_size=cfg.leaf_size,
-                                unweighted_leaf_com=cfg.unweighted_leaf_com,
-                                quad=cfg.resolved_multipole() == 2)
+        def force(pos, mass):
+            with self._phase("sum_gravity"):
+                return accel(pos, mass)
+        self._step = lambda st: self._integrate(st, force)
 
-    def _sweep(self, tree, n: int) -> torch.Tensor:
-        """Planner + sweep: accelerations of the first ``n`` Morton-ordered
-        particles."""
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """The timing hook around each phase of a step: inside
+        ``step_timed`` it adds the phase's wall time, up to a device sync
+        at its end, to ``counting.<name>``; elsewhere, a graph capture
+        included, it neither syncs nor times."""
+        if self._timing is None:
+            yield
+            return
+        counting, device = self._timing
+        with PhaseTimer(counting, name):
+            yield
+            _sync(device)
+
+    def _integrate(self, st: ParticleState, force) -> ParticleState:
+        """``config.integrator`` over ``force`` (``(pos, mass) -> accel``).
+        ``euler_step`` is looked up in this module when the step runs."""
         cfg = self.config
-        fcap, lcap = cfg.resolved_caps()
-        return bh_accel_sorted(tree, theta=cfg.theta,
-                               softening2=cfg.softening2,
-                               frontier_cap=fcap, leaf_cap=lcap,
-                               arity=cfg.tree_arity,
-                               plan_leaves=cfg.plan_leaves,
-                               multipole=cfg.resolved_multipole(),
-                               rcp=cfg.resolved_rcp(bh=True))[:n]
+        if cfg.integrator == "leapfrog":
+            return leapfrog_step(st, force, cfg.dt,
+                                 lambda: self._phase("post_calculations"))
+        acc = force(st.pos, st.mass)
+        with self._phase("post_calculations"):
+            return euler_step(st, acc, cfg.dt)
 
     def _bh_force(self, spos: torch.Tensor,
                   smass: torch.Tensor) -> torch.Tensor:
-        return self._sweep(self._summaries(spos, smass), spos.shape[0])
+        """Tree summaries, planner and sweep: the accelerations of the
+        Morton-ordered particles."""
+        cfg = self.config
+        with self._phase("build_bvh"):
+            tree = summarize_sorted(
+                spos, smass, leaf_size=cfg.leaf_size,
+                unweighted_leaf_com=cfg.unweighted_leaf_com,
+                quad=cfg.resolved_multipole() == 2)
+        fcap, lcap = cfg.resolved_caps()
+        with self._phase("sum_gravity"):
+            acc = bh_accel_sorted(tree, theta=cfg.theta,
+                                  softening2=cfg.softening2,
+                                  frontier_cap=fcap, leaf_cap=lcap,
+                                  arity=cfg.tree_arity,
+                                  plan_leaves=cfg.plan_leaves,
+                                  multipole=cfg.resolved_multipole(),
+                                  rcp=cfg.resolved_rcp(bh=True))
+            return acc[:spos.shape[0]]
+
+    def _resort_due(self) -> bool:
+        return self.updates % max(self.config.resort_every, 1) == 0
 
     def _bh_step(self, st: ParticleState) -> ParticleState:
-        """Re-sort on ``updates % resort_every == 0``, else step in the
-        current (stale) Morton order."""
-        cfg = self.config
-        if self.updates % max(cfg.resort_every, 1) == 0:
-            spos, svel, smass = morton_sort_state(
-                st.pos, st.vel, st.mass, cfg.world_size,
-                bits=cfg.resolved_morton_bits())
-        else:
-            spos, svel, smass = st.pos, st.vel, st.mass
-        dt = float(np.float32(cfg.dt))
-        if cfg.integrator == "leapfrog":
-            half = float(np.float32(dt) * np.float32(0.5))
-            v_half = svel + self._bh_force(spos, smass) * half
-            pos = spos + v_half * dt
-            vel = v_half + self._bh_force(pos, smass) * half
-        else:
-            vel = svel + self._bh_force(spos, smass) * dt
-            pos = spos + vel * dt
-        return st.replace(pos=pos, vel=vel, mass=smass)
+        return self._bh_advance(st, resort=self._resort_due())
+
+    def _bh_advance(self, st: ParticleState, resort: bool) -> ParticleState:
+        """The Barnes-Hut step: a Morton re-sort if ``resort``, else a step
+        in the current (stale) order, then the integrator over
+        ``_bh_force``."""
+        if resort:
+            cfg = self.config
+            with self._phase("build_bvh"):
+                pos, vel, mass = morton_sort_state(
+                    st.pos, st.vel, st.mass, cfg.world_size,
+                    bits=cfg.resolved_morton_bits())
+            st = st.replace(pos=pos, vel=vel, mass=mass)
+        return self._integrate(st, self._bh_force)
 
     # -- fast path ------------------------------------------------------------
     def step(self) -> None:
@@ -258,7 +279,7 @@ class World:
                              (st.mass, s.mass))):
             self._drop_graphs()
             s = None
-        resort = self.updates % max(self.config.resort_every, 1) == 0
+        resort = self._resort_due()
         if resort not in self._warmed:
             self._warmed.add(resort)
             self.state = self._bh_step(st)
@@ -345,79 +366,27 @@ class World:
     def step_timed(self, counting) -> None:
         """One step with a device sync after each phase, accumulating
         Counting like the reference's per-phase timers (src/main.rs:402,
-        417, 424): build_bvh = Morton sort + tree summaries (0 for direct),
-        sum_gravity = planner + sweep, post_calculations = integration.
-        This step always re-sorts, as the JAX package's does.
+        417, 424): build_bvh = Morton sort + tree summaries (0 off the
+        Barnes-Hut path), sum_gravity = planner + sweep or the all-pairs
+        force, post_calculations = integration. This step always re-sorts,
+        as the JAX package's does.
 
-        Every path runs ``config.integrator``, so a profiled step is the
-        step ``World.step`` takes, bit for bit; under leapfrog that is two
-        force evaluations, each timed under sum_gravity. This departs from
-        the JAX ``step_timed``, which runs Euler on the "pallas" and
-        "direct" paths whatever the integrator (its own test states the
-        intent that a profiled step run the same integrator)."""
-        cfg = self.config
+        It is the step ``World.step`` takes, bit for bit, timed through
+        ``_phase``; under leapfrog that is two force evaluations, each
+        timed. This departs from the JAX ``step_timed``, which runs Euler
+        on the "pallas" and "direct" paths whatever the integrator (its own
+        test states the intent that a profiled step run the same
+        integrator)."""
         st = self.state
-        dev = st.device
         # The phases time this step alone: work still queued (the engine
         # enqueues a batch ahead of its host work) finishes first.
-        _sync(dev)
-        if cfg.force_path != "bh":
-            with PhaseTimer(counting, "sum_gravity"):
-                accel = self._accel(st.pos, st.mass)
-                _sync(dev)
-            if cfg.integrator == "leapfrog":
-                # leapfrog_step, phase by phase.
-                dt32 = np.float32(cfg.dt)
-                half = float(np.float32(0.5) * dt32)
-                with PhaseTimer(counting, "post_calculations"):
-                    v_half = st.vel + accel * half
-                    pos = st.pos + v_half * float(dt32)
-                    _sync(dev)
-                with PhaseTimer(counting, "sum_gravity"):
-                    accel2 = self._accel(pos, st.mass)
-                    _sync(dev)
-                with PhaseTimer(counting, "post_calculations"):
-                    self.state = st.replace(pos=pos,
-                                            vel=v_half + accel2 * half)
-                    _sync(dev)
-            else:
-                with PhaseTimer(counting, "post_calculations"):
-                    self.state = euler_step(st, accel, cfg.dt)
-                    _sync(dev)
-            self.updates += 1
-            self.graph_counts.eager += 1
-            return
-
-        with PhaseTimer(counting, "build_bvh"):
-            spos, svel, smass = morton_sort_state(
-                st.pos, st.vel, st.mass, cfg.world_size,
-                bits=cfg.resolved_morton_bits())
-            tree = self._summaries(spos, smass)
-            _sync(dev)
-        with PhaseTimer(counting, "sum_gravity"):
-            accel = self._sweep(tree, st.n)
-            _sync(dev)
-        if cfg.integrator == "leapfrog":
-            dt = float(np.float32(cfg.dt))
-            half = float(np.float32(dt) * np.float32(0.5))
-            with PhaseTimer(counting, "post_calculations"):
-                v_half = svel + accel * half
-                spos2 = spos + v_half * dt
-                _sync(dev)
-            with PhaseTimer(counting, "build_bvh"):
-                tree2 = self._summaries(spos2, smass)
-                _sync(dev)
-            with PhaseTimer(counting, "sum_gravity"):
-                accel2 = self._sweep(tree2, st.n)
-                _sync(dev)
-            with PhaseTimer(counting, "post_calculations"):
-                vel2 = v_half + accel2 * half
-                self.state = st.replace(pos=spos2, vel=vel2, mass=smass)
-                _sync(dev)
-        else:
-            with PhaseTimer(counting, "post_calculations"):
-                self.state = euler_step(
-                    st.replace(pos=spos, vel=svel, mass=smass), accel, cfg.dt)
-                _sync(dev)
+        _sync(st.device)
+        self._timing = (counting, st.device)
+        try:
+            self.state = (self._bh_advance(st, resort=True)
+                          if self.config.force_path == "bh"
+                          else self._step(st))
+        finally:
+            self._timing = None
         self.updates += 1
         self.graph_counts.eager += 1

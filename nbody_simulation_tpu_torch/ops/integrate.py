@@ -6,10 +6,14 @@ The reference's integrate loop (reference src/main.rs:419-423):
     position += velocity * dt        # uses the UPDATED velocity
 
 ``dt`` is rounded to f32 first, as the JAX package does, so both packages
-take bitwise-equal steps.
+take bitwise-equal steps. These two functions are the port's only updates
+of velocity and position from an acceleration: the World's paths and the
+multi-device steps all call them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -26,13 +30,19 @@ def euler_step(state: ParticleState, accel: torch.Tensor,
     return state.replace(pos=pos, vel=vel)
 
 
-def leapfrog_step(state: ParticleState, accel_fn, dt: float) -> ParticleState:
+def leapfrog_step(state: ParticleState, accel_fn, dt: float,
+                  phase=contextlib.nullcontext) -> ParticleState:
     """Kick-drift-kick leapfrog; ``accel_fn`` is (pos, mass) -> accel and is
-    evaluated twice per step."""
+    evaluated twice per step. ``phase()`` is a context around the
+    kick-drift and around the last kick (``World.step_timed`` times them)."""
     dt32 = np.float32(dt)
     half = float(np.float32(0.5) * dt32)
     dt = float(dt32)
-    v_half = state.vel + accel_fn(state.pos, state.mass) * half
-    pos = state.pos + v_half * dt
-    vel = v_half + accel_fn(pos, state.mass) * half
+    acc = accel_fn(state.pos, state.mass)
+    with phase():
+        v_half = state.vel + acc * half
+        pos = state.pos + v_half * dt
+    acc = accel_fn(pos, state.mass)
+    with phase():
+        vel = v_half + acc * half
     return state.replace(pos=pos, vel=vel)

@@ -41,6 +41,7 @@ import torch
 
 from nbody_simulation_tpu_torch.config import SimConfig
 from nbody_simulation_tpu_torch.ops.energy import bh_potential_from_columns
+from nbody_simulation_tpu_torch.ops.integrate import euler_step, leapfrog_step
 from nbody_simulation_tpu_torch.ops.morton import (morton_keys,
                                                    morton_sort_state)
 from nbody_simulation_tpu_torch.ops.traversal import (_group_node_d2, _rows,
@@ -633,8 +634,6 @@ def make_distributed_bh_step(mesh: Mesh, config: SimConfig, extra_pairs=()):
     leapfrog with two force evaluations. ``step.reset()`` restarts the
     re-sort cadence (after a rebalance the state is freshly sorted)."""
     cfg = config
-    dt = float(np.float32(cfg.dt))
-    half = float(np.float32(dt) * np.float32(0.5))
     mbits = cfg.resolved_morton_bits()
     every = max(1, cfg.resort_every)
     counter = [0]
@@ -651,17 +650,10 @@ def make_distributed_bh_step(mesh: Mesh, config: SimConfig, extra_pairs=()):
                 mesh, lambda p, v, m: morton_sort_state(
                     p, v, m, cfg.world_size, bits=mbits),
                 state.pos, state.vel, state.mass)
-        else:
-            spos, svel, smass = state.pos, state.vel, state.mass
-        acc = accel(spos, smass)
+            state = state.replace(pos=spos, vel=svel, mass=smass)
         if cfg.integrator == "leapfrog":
-            v_half = svel + acc * half
-            pos = spos + v_half * dt
-            vel = v_half + accel(pos, smass) * half
-        else:
-            vel = svel + acc * dt
-            pos = spos + vel * dt
-        return state.replace(pos=pos, vel=vel, mass=smass)
+            return leapfrog_step(state, accel, cfg.dt)
+        return euler_step(state, accel(state.pos, state.mass), cfg.dt)
 
     def reset() -> None:
         counter[0] = 0

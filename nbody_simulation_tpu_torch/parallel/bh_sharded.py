@@ -11,10 +11,10 @@ the two differ only where a group's sums run in another order.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from nbody_simulation_tpu_torch.config import SimConfig
+from nbody_simulation_tpu_torch.ops.integrate import euler_step
 from nbody_simulation_tpu_torch.ops.morton import morton_order
 from nbody_simulation_tpu_torch.ops.traversal import (grouped_force,
                                                       last_nonzero_columns,
@@ -72,12 +72,9 @@ def bh_sharded_accel(pos: torch.Tensor, mass: torch.Tensor, mesh: Mesh,
 def make_sharded_bh_step(mesh: Mesh, config: SimConfig):
     """A ``state -> state`` multi-device Barnes-Hut step: the sharded force
     and semi-implicit Euler in f32."""
-    dt = float(np.float32(config.dt))
 
     def step(state: ParticleState) -> ParticleState:
         acc = bh_sharded_accel(state.pos, state.mass, mesh, config=config)
-        vel = state.vel + acc * dt
-        pos = state.pos + vel * dt
-        return state.replace(pos=pos, vel=vel)
+        return euler_step(state, acc, config.dt)
 
     return step

@@ -7,11 +7,11 @@ diagnostics and the exact total energy summed over the mesh with ``psum``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from nbody_simulation_tpu_torch.config import SimConfig
 from nbody_simulation_tpu_torch.ops.energy import allpairs_potential
+from nbody_simulation_tpu_torch.ops.integrate import euler_step
 from nbody_simulation_tpu_torch.parallel.mesh import (Mesh, map_shards,
                                                       split_shards)
 from nbody_simulation_tpu_torch.parallel.ring import ring_allpairs_accel
@@ -22,8 +22,7 @@ def make_sharded_step(mesh: Mesh, config: SimConfig,
                       tile_i: int | None = None, tile_j: int | None = None):
     """A ``state -> state`` step over ``mesh`` (a state from
     ``shard_state``): ``vel += acc·dt``, then ``pos += vel·dt``, with dt
-    rounded to f32 as the JAX package does."""
-    dt = float(np.float32(config.dt))
+    rounded to f32 as the JAX package does (``ops.integrate``)."""
     ti = tile_i or config.tile_i
     tj = tile_j or config.tile_j
     rcp = config.resolved_rcp()
@@ -32,9 +31,7 @@ def make_sharded_step(mesh: Mesh, config: SimConfig,
         acc = ring_allpairs_accel(state.pos, state.mass, mesh,
                                   softening2=config.softening2, tile_i=ti,
                                   tile_j=tj, rcp=rcp)
-        vel = state.vel + acc * dt
-        pos = state.pos + vel * dt
-        return state.replace(pos=pos, vel=vel)
+        return euler_step(state, acc, config.dt)
 
     return step
 

@@ -133,18 +133,30 @@ def test_pallas_world_with_the_ordered_kernel_matches_jax():
     _check_close(*_pallas_worlds_after_8_steps(sym_allpairs=False))
 
 
-@pytest.mark.parametrize("force_path", ["direct", "pallas"])
-def test_profiled_leapfrog_step_is_the_step(force_path):
-    """A profiled step runs config.integrator on the non-BH paths too: a
-    leapfrog run with step_timed interleaved is bitwise the plain leapfrog
-    run, and within the slice's tolerance of the JAX World's leapfrog run.
-    The JAX step_timed runs Euler on these paths; the port departs from it
-    (World.step_timed)."""
-    kw = dict(force_path=force_path, integrator="leapfrog")
-    if force_path == "pallas":
-        kw.update(PALLAS_KW)
+PROFILED_PATHS = {
+    "direct": dict(force_path="direct"),
+    "pallas": PALLAS_KW,
+    "bh50": dict(force_path="bh", theta=50.0, resort_every=2),
+    # Below θ=2 the default caps (256) cost a second a step on the CPU.
+    "bh05-quad": dict(force_path="bh", theta=0.5, resort_every=2,
+                      frontier_cap=16, leaf_cap=16),
+}
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+@pytest.mark.parametrize("force_path", list(PROFILED_PATHS))
+def test_profiled_step_is_the_step(force_path, integrator):
+    """A profiled step is the step World.step takes: a run with step_timed
+    at every even update is bitwise the plain run, on every force path and
+    under both integrators, and each phase it times is the one that ran.
+    On the Barnes-Hut paths the plain run re-sorts at the same (even)
+    updates as the profiled step, which always re-sorts. On the direct and
+    all-pairs paths both runs are within the slice's tolerance of the JAX
+    World's; the JAX step_timed runs Euler on those paths whatever the
+    integrator, so its run is the plain one (World.step_timed)."""
+    kw = dict(PROFILED_PATHS[force_path], integrator=integrator)
+    bh = kw["force_path"] == "bh"
     jst = juniform(256, seed=5)
-    jw = JaxWorld(jst, JaxConfig(**kw))
     arrays = [np.asarray(a) for a in (jst.pos, jst.vel, jst.mass)]
     plain = World(state_from_numpy(*arrays), SimConfig(**kw))
     timed = World(state_from_numpy(*arrays), SimConfig(**kw))
@@ -155,11 +167,15 @@ def test_profiled_leapfrog_step_is_the_step(force_path):
             timed.step()
         else:
             timed.step_timed(counting)
-    jw.run(4)
-    assert timed.updates == plain.updates == jw.updates == 4
+    assert timed.updates == plain.updates == 4
+    assert (counting.build_bvh > 0) if bh else (counting.build_bvh == 0)
     assert counting.sum_gravity > 0 and counting.post_calculations > 0
     for k in ("pos", "vel", "mass"):
         assert torch.equal(getattr(timed.state, k), getattr(plain.state, k))
+    if bh:
+        return
+    jw = JaxWorld(jst, JaxConfig(**kw))
+    jw.run(4)
     _check_close({k: np.asarray(getattr(jw.state, k)) for k in ("pos", "vel",
                                                                "mass")},
                  {k: getattr(timed.state, k).numpy() for k in ("pos", "vel",
